@@ -1,0 +1,321 @@
+"""Drive the PyTorch port's main path on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. print the card's name and power limit; build every CUDA source under
+     odise_torch/csrc (one nvcc each, started together);
+  2. hold the deformable-attention kernel against its plain PyTorch version
+     at the main path's shapes, in float32 and bf16, on random,
+     out-of-range and pixel-centre sampling locations;
+  3. serve four 1024-px requests with CategoryODISE at FULL width in bf16
+     (deterministic pattern weights, 133- and 20-label vocabularies):
+     encode_vocab, forward_eval_trunk, forward_eval_head,
+     semantic_inference, panoptic_inference; the kernel's launch count must
+     grow by 6 per image;
+  4. time the kernel and the plain version on the inputs the main path gave
+     the first encoder layer, and compare them there;
+  5. hold the TINY model on the card against the same model on the CPU.
+Then it prints the ``kernels`` JSON line and, last, the ``ok`` line.
+It needs a card and the repository around it, and exits non-zero without.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+# s5, s4, s3 of a 1024-px image, coarsest first as the pixel decoder orders them
+SHAPES = [(32, 32), (64, 64), (128, 128)]
+HEADS, HEAD_DIM, POINTS = 8, 32, 4
+H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
+H100_F32_FLOPS = 67e12      # float32 outside the tensor cores
+TIMING_ITERS = 20
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def build_kernels():
+    from odise_torch.ops import _build
+
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    t0 = time.perf_counter()
+    _build.build(names)
+    log(f"built {names} in {time.perf_counter() - t0:.1f} s")
+
+
+def deform_inputs(kind, dtype, gen):
+    """Main-path-shaped deformable-attention inputs on the card."""
+    Lq = sum(h * w for h, w in SHAPES)
+    L = len(SHAPES)
+    value = torch.randn((1, Lq, HEADS, HEAD_DIM), generator=gen, device="cuda")
+    shape = (1, Lq, HEADS, L, POINTS, 2)
+    if kind == "random":
+        loc = torch.rand(shape, generator=gen, device="cuda")
+    elif kind == "out_of_range":
+        loc = torch.rand(shape, generator=gen, device="cuda") * 2.0 - 0.5
+    else:  # pixel centres: x = loc * w - 0.5 is an integer, edges included
+        wh = torch.tensor([[w, h] for h, w in SHAPES], dtype=torch.float32,
+                          device="cuda")[None, None, None, :, None, :]
+        idx = torch.floor(torch.rand(shape, generator=gen, device="cuda") * wh)
+        loc = (idx + 0.5) / wh
+    logits = torch.randn((1, Lq, HEADS, L * POINTS), generator=gen, device="cuda")
+    attn = torch.softmax(logits, -1).reshape(1, Lq, HEADS, L, POINTS)
+    return value.to(dtype), loc, attn.to(dtype)
+
+
+def tolerance(ref):
+    """float32: 1e-5, another summation order of unit-scale terms. bf16:
+    both sides round their float32 sum to bf16 once; two bf16 ulps of the
+    largest output cover a rounding that falls on either side."""
+    if ref.dtype == torch.float32:
+        return 1e-5
+    return 2 * float(ref.abs().max()) * 2.0 ** -8
+
+
+def check_kernel(value, loc, attn, label):
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_torch
+
+    out = ms_deform_attn(value, SHAPES, loc, attn)
+    ref = ms_deform_attn_torch(value, SHAPES, loc, attn)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    tol = tolerance(ref)
+    log(f"kernel vs plain [{label}]: max_abs_err {err:.3e} (tolerance {tol:.1e})")
+    if not err <= tol:
+        raise AssertionError(f"kernel disagrees with its plain version [{label}]")
+    return err
+
+
+def time_cold(fn, iters=TIMING_ITERS):
+    """Mean ms per call, each call timed alone with CUDA events after the
+    L2 (50 MB) is overwritten, as the main path finds it after other work."""
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def deform_bound_ms(value, loc, attn):
+    """Least time for the card: each input read once and the output written
+    once at the HBM rate, or the float32 multiply-adds over the corners
+    that this data puts inside their level, whichever is larger."""
+    elem = value.element_size()
+    n_bytes = (value.numel() * elem + loc.numel() * 4 + attn.numel() * elem
+               + value.numel() // value.shape[1] * loc.shape[1] * elem)
+    corners = 0
+    for lvl, (h, w) in enumerate(SHAPES):
+        x = loc[:, :, :, lvl, :, 0] * w - 0.5
+        y = loc[:, :, :, lvl, :, 1] * h - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                inside = ((x0 + dx >= 0) & (x0 + dx <= w - 1)
+                          & (y0 + dy >= 0) & (y0 + dy <= h - 1))
+                corners += int(inside.sum())
+    flops = corners * HEAD_DIM * 2
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    log(f"bound: {n_bytes / 1e6:.1f} MB -> {t_bytes * 1e3:.1f} us; "
+        f"{flops / 1e9:.3f} GFLOP -> {t_ops * 1e3:.1f} us")
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pattern_fill_(model):
+    """0.02 * sin(0.001 * i), i running over all parameters in order."""
+    i = 0
+    with torch.no_grad():
+        for p in model.parameters():
+            idx = torch.arange(i, i + p.numel(), dtype=torch.float64, device=p.device)
+            p.copy_((0.02 * torch.sin(0.001 * idx)).reshape(p.shape))
+            i += p.numel()
+    return i
+
+
+def pattern_image(size, device):
+    n = size * size * 3
+    x = torch.arange(n, dtype=torch.float32, device=device)
+    return (0.5 + 0.5 * torch.sin(x * 0.37)).reshape(1, size, size, 3)
+
+
+def vocabulary(n_things, n_stuff, tag):
+    labels = tuple((f"{tag} {i}",) for i in range(n_things + n_stuff))
+    thing = torch.tensor([True] * n_things + [False] * n_stuff)
+    return labels, thing
+
+
+def serve(model, requests, image, train_labels):
+    """One request: encode the vocabulary, run the trunk and the head, fuse.
+    Returns per-request records."""
+    from odise_torch.models.clip.tokenizer import tokenize
+    from odise_torch.models.inference import panoptic_inference, semantic_inference
+    from odise_torch.models.odise import category_overlapping_mask
+
+    device = image.device
+    records = []
+    for labels, thing in requests:
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        names = [l[0] for l in labels]
+        text = model.encode_vocab(torch.from_numpy(tokenize(names)).long().to(device))
+        clip_text = model.encode_vocab(torch.from_numpy(
+            tokenize([f"a photo of a {n}." for n in names])).long().to(device))
+        overlap = torch.from_numpy(
+            category_overlapping_mask(train_labels, labels)).to(device)
+        trunk = model.forward_eval_trunk(image)
+        mask_cls = model.forward_eval_head(trunk, text, labels, clip_text,
+                                           labels, overlap)
+        mask_pred = trunk["mask_pred"]
+        sem = semantic_inference(mask_cls[0], mask_pred[0])
+        pan = panoptic_inference(mask_cls[0], mask_pred[0], thing,
+                                 object_mask_threshold=0.0, overlap_threshold=0.8)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        Q, K = model.num_queries, len(labels)
+        H, W = image.shape[1:3]
+        if tuple(mask_cls.shape) != (1, Q, K + 1) or tuple(mask_pred.shape) != (1, Q, H, W):
+            raise AssertionError(f"shapes {tuple(mask_cls.shape)} {tuple(mask_pred.shape)}")
+        for name, t in (("mask_cls", mask_cls), ("mask_pred", mask_pred), ("sem", sem)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name} is not finite")
+        records.append(dict(
+            ms=ms, K=K,
+            logit_sum=float(mask_cls.float().abs().sum() + mask_pred.float().abs().sum()),
+            sem_sum=float(sem.float().sum()),
+            segments=int(pan.num_segments),
+            mask_cls=mask_cls, mask_pred=mask_pred))
+    return records
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs an NVIDIA card: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    from odise_torch.model_zoo.factory import build_category_odise
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # 1. build
+    build_kernels()
+
+    # 2. kernel vs plain at the main-path shapes
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("random", "out_of_range", "pixel_centres"):
+            errs.append(check_kernel(*deform_inputs(kind, dtype, gen),
+                                     f"{kind}, {str(dtype)[6:]}"))
+
+    # 3. the main path: FULL width, bf16, three 1024-px requests
+    train_labels, thing133 = vocabulary(80, 53, "category")
+    t0 = time.perf_counter()
+    model = build_category_odise("full", train_labels=train_labels,
+                                 device="cuda", dtype=torch.bfloat16)
+    n_params = pattern_fill_(model)
+    torch.cuda.synchronize()
+    log(f"FULL model: {n_params / 1e9:.3f} B parameters, built and filled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    vocab20 = vocabulary(12, 8, "other")
+    # the 4th request repeats the 3rd: it separates a vocabulary's first-use
+    # cost from its steady cost
+    requests = [(train_labels, thing133), (train_labels, thing133), vocab20, vocab20]
+    image = pattern_image(1024, "cuda")
+
+    captured = []
+    layer0 = model.sem_seg_head.pixel_decoder.encoder_layer_0
+    hook = layer0.register_forward_pre_hook(
+        lambda mod, args: captured.append(args) if not captured else None)
+    torch.cuda.reset_peak_memory_stats()
+    ms_deform_attn.launches = 0
+    with torch.inference_mode():
+        records = serve(model, requests, image, train_labels)
+    launches = ms_deform_attn.launches
+    hook.remove()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, r in enumerate(records):
+        log(f"request {i}: {r['ms']:.1f} ms, K={r['K']}, logit_sum {r['logit_sum']:.6e}, "
+            f"sem_sum {r['sem_sum']:.6e}, segments {r['segments']}")
+    log(f"peak memory allocated: {peak_gib:.2f} GiB; deform-attn launches {launches}")
+    if launches != 6 * len(requests):
+        raise AssertionError(f"{launches} kernel launches for {len(requests)} "
+                             f"images; expected 6 per image")
+    if records[0]["logit_sum"] != records[1]["logit_sum"]:
+        log("note: two identical requests gave different checksums "
+            f"({records[0]['logit_sum']!r} vs {records[1]['logit_sum']!r})")
+
+    # 4. the kernel on the main path's own inputs (first encoder layer)
+    src, pos, ref_points, shapes = captured[0]
+    with torch.inference_mode():
+        v, loc, attn = layer0.self_attn.sampling_inputs(src + pos, ref_points,
+                                                        src, shapes)
+        if [tuple(s) for s in shapes] != SHAPES or v.dtype != torch.bfloat16:
+            raise AssertionError(f"unexpected main-path shapes {shapes} {v.dtype}")
+        errs.append(check_kernel(v, loc, attn, "main-path inputs, bfloat16"))
+        kernel_ms = time_cold(lambda: ms_deform_attn(v, SHAPES, loc, attn))
+        plain_ms = time_cold(lambda: ms_deform_attn_torch(v, SHAPES, loc, attn))
+        bound_ms, bound_by = deform_bound_ms(v, loc, attn)
+    log(f"deform attn on main-path inputs: kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    del model, records, captured
+    torch.cuda.empty_cache()
+
+    # 5. small-input reference: TINY on the card (kernel) vs on the CPU (plain)
+    tiny_labels, tiny_thing = vocabulary(2, 1, "tiny")
+    cpu_model = build_category_odise("tiny", train_labels=tiny_labels, device="cpu",
+                                     backbone_in_size=(128, 128))
+    gpu_model = build_category_odise("tiny", train_labels=tiny_labels, device="cuda",
+                                     backbone_in_size=(128, 128))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    tiny_req = [(tiny_labels, tiny_thing)]
+    with torch.no_grad():
+        rc = serve(cpu_model, tiny_req, pattern_image(128, "cpu"), tiny_labels)[0]
+        rg = serve(gpu_model, tiny_req, pattern_image(128, "cuda"), tiny_labels)[0]
+    for name in ("mask_cls", "mask_pred"):
+        err = float((rg[name].cpu() - rc[name]).abs().max())
+        log(f"TINY card vs CPU {name}: max_abs_err {err:.3e} (tolerance 1e-3)")
+        if not err <= 1e-3:  # float32 through ~100 layers, other sum orders
+            raise AssertionError(f"TINY {name} on the card disagrees with the CPU")
+
+    log(card_line())
+    print(json.dumps({"kernels": [{
+        "name": "ms_deform_attn", "route": "cuda",
+        "source": "odise_torch/csrc/ms_deform_attn.cu",
+        "replaces": "odise_tpu/ops/pallas/ms_deform_attn_kernel.py:157",
+        "launches": launches, "max_abs_err": max(errs),
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,115 @@
+"""Assemble CategoryODISE at the JAX package's named scales (counterpart of
+``odise_tpu/model_zoo/factory.py``): "full" is the shipped configuration,
+"tiny" a structurally identical miniature for tests."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..models.backbone.feature_extractor import (
+    FeatureExtractorBackbone,
+    LdmImplicitCaptionerExtractor,
+)
+from ..models.clip.model import TextTransformer
+from ..models.decoder.pixel_decoder import MSDeformAttnPixelDecoder
+from ..models.decoder.transformer_decoder import (
+    MaskFormerHead,
+    ODISEMultiScaleMaskedTransformerDecoder,
+    PooledMaskEmbed,
+    PseudoClassEmbed,
+)
+from ..models.odise import CategoryEmbed, CategoryODISE, PoolingCLIPHead
+
+TINY = dict(
+    hidden=32, queries=10, dec_layers=3, enc_layers=2, nheads=4, ffn=64,
+    model_channels=8, vae_ch=8, context_dim=16, sd_text_layers=1,
+    clip_vit_cfg=(32, 8, 16, 1, 2, 16), clip_dim=16,
+    backbone_in_size=(64, 64), projection_dim=32,
+    pooling_clip=dict(clip_image_size=32, patch_size=8, vit_width=16,
+                      vit_layers=1, vit_heads=2, embed_dim=16),
+    text_encoder=dict(width=16, layers=1, heads=2, embed_dim=16),
+)
+
+FULL = dict(
+    hidden=256, queries=100, dec_layers=9, enc_layers=6, nheads=8, ffn=2048,
+    model_channels=320, vae_ch=128, context_dim=768, sd_text_layers=12,
+    clip_vit_cfg=(224, 14, 1024, 24, 16, 768), clip_dim=768,
+    backbone_in_size=(512, 512), projection_dim=512,
+    pooling_clip=dict(clip_image_size=336, patch_size=14, vit_width=1024,
+                      vit_layers=24, vit_heads=16, embed_dim=768),
+    text_encoder=dict(width=768, layers=12, heads=12, embed_dim=768),
+)
+
+TINY_TRAIN_LABELS = (("thing a",), ("thing b",), ("stuff c",))
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA; CUDA without a card is an error, not the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
+def build_category_odise(scale: str = "full", *,
+                         train_labels: Optional[Tuple[Tuple[str, ...], ...]] = None,
+                         with_clip_head: bool = True,
+                         backbone_in_size: Optional[tuple] = None,
+                         device=None, dtype: torch.dtype = torch.float32
+                         ) -> CategoryODISE:
+    """Build the eval model on ``device`` (default CUDA) with matmuls and
+    convolutions in ``dtype``; norms and raw parameters stay float32.
+
+    "tiny" defaults to three placeholder labels; "full" needs the caller's
+    ``train_labels`` (no label file is read).
+    """
+    if scale not in ("tiny", "full"):
+        raise ValueError(f"unknown scale {scale!r}")
+    cfg = dict(TINY if scale == "tiny" else FULL)
+    if backbone_in_size is not None:
+        cfg["backbone_in_size"] = tuple(backbone_in_size)
+    if train_labels is None:
+        if scale != "tiny":
+            raise ValueError("the full model needs train_labels")
+        train_labels = TINY_TRAIN_LABELS
+    device = resolve_device(device)
+    num_classes = len(train_labels)
+    hidden = cfg["hidden"]
+    with torch.device(device):
+        captioner = LdmImplicitCaptionerExtractor(
+            learnable_time_embed=True, model_channels=cfg["model_channels"],
+            vae_ch=cfg["vae_ch"], context_dim=cfg["context_dim"],
+            sd_text_layers=cfg["sd_text_layers"],
+            clip_vit_cfg=tuple(cfg["clip_vit_cfg"]), dtype=dtype)
+        backbone = FeatureExtractorBackbone(
+            captioner, out_features=("s2", "s3", "s4", "s5"),
+            backbone_in_size=tuple(cfg["backbone_in_size"]),
+            projection_dim=cfg["projection_dim"], dtype=dtype)
+        pixel_decoder = MSDeformAttnPixelDecoder(
+            backbone.output_shape(), conv_dim=hidden, mask_dim=hidden,
+            transformer_nheads=cfg["nheads"],
+            transformer_dim_feedforward=max(cfg["ffn"] // 2, 64),
+            transformer_enc_layers=cfg["enc_layers"], dtype=dtype)
+        predictor = ODISEMultiScaleMaskedTransformerDecoder(
+            hidden_dim=hidden, num_queries=cfg["queries"], nheads=cfg["nheads"],
+            dim_feedforward=cfg["ffn"], dec_layers=cfg["dec_layers"],
+            mask_dim=hidden, num_classes=num_classes, in_channels=hidden,
+            class_embed=PseudoClassEmbed(num_classes),
+            post_mask_embed=PooledMaskEmbed(hidden, hidden, hidden, dtype=dtype),
+            dtype=dtype)
+        te = cfg["text_encoder"]
+        model = CategoryODISE(
+            backbone=backbone,
+            sem_seg_head=MaskFormerHead(pixel_decoder, predictor),
+            category_head=CategoryEmbed(hidden, cfg["clip_dim"], dtype=dtype),
+            text_encoder=TextTransformer(width=te["width"], layers=te["layers"],
+                                         heads=te["heads"],
+                                         embed_dim=te["embed_dim"], dtype=dtype),
+            clip_head=(PoolingCLIPHead(dtype=dtype, **cfg["pooling_clip"])
+                       if with_clip_head else None),
+            train_labels=train_labels, num_queries=cfg["queries"])
+    # buffers loaded from package data (the shared noise) start on the CPU
+    return model.to(device).eval()

@@ -1,0 +1,174 @@
+"""CategoryODISE eval path (counterpart of ``odise_tpu/models/odise.py``).
+
+Public layouts follow the JAX package: images [B, H, W, 3] in [0, 1];
+``forward_eval_trunk`` returns mask_pred [B, Q, H, W], mask_embed,
+logit_scale and clip_mask_embed; ``forward_eval_head`` returns mask_cls
+[B, Q, K+1].
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from .clip.adapter import build_mask_reader_mask, clip_preprocess
+from .clip.model import TextTransformer, VisionTransformer
+from .helper import ensemble_logits_with_labels, l2_normalize
+from .modules import Dense, param
+from .resize import resize
+
+Labels = Tuple[Tuple[str, ...], ...]
+
+
+def cal_pred_logits(mask_embed, text_embed, null_embed, logit_scale, labels):
+    """Cosine classification with synonym ensembling and a null column
+    (float32 logits, as the JAX code's float32 scale promotes them)."""
+    mask_embed = l2_normalize(mask_embed)
+    pred = logit_scale * torch.einsum(
+        "bqc,kc->bqk", mask_embed, l2_normalize(text_embed)).float()
+    pred = ensemble_logits_with_labels(pred, labels, "max")
+    null_pred = logit_scale * torch.einsum(
+        "bqc,kc->bqk", mask_embed, l2_normalize(null_embed)).float()
+    return torch.cat([pred, null_pred], dim=-1)
+
+
+class CategoryEmbed(nn.Module):
+    """Text projection + learnable null embed."""
+
+    def __init__(self, projection_dim: int, clip_dim: int = 768,
+                 dtype=torch.float32):
+        super().__init__()
+        self.null_embed = param((1, clip_dim))
+        self.text_proj = Dense(clip_dim, projection_dim, dtype=dtype)
+
+    def forward(self, text_embed_raw):
+        return {"text_embed": self.text_proj(text_embed_raw),
+                "null_embed": self.text_proj(self.null_embed)}
+
+
+class PoolingCLIPHead(nn.Module):
+    """Test-time MaskCLIP classifier, geometrically ensembled with the mask
+    generator's logits; exponents alpha (seen) / beta (novel)."""
+
+    def __init__(self, alpha: float = 0.35, beta: float = 0.65,
+                 clip_image_size: int = 336, patch_size: int = 14,
+                 vit_width: int = 1024, vit_layers: int = 24,
+                 vit_heads: int = 16, embed_dim: int = 768,
+                 dtype=torch.float32):
+        super().__init__()
+        self.alpha, self.beta = alpha, beta
+        self.clip_image_size, self.patch_size = clip_image_size, patch_size
+        self.embed_dim = embed_dim
+        self.dtype = dtype
+        self.clip_visual = VisionTransformer(
+            image_size=clip_image_size, patch_size=patch_size, width=vit_width,
+            layers=vit_layers, heads=vit_heads, embed_dim=embed_dim, dtype=dtype)
+        self.logit_scale = param((), fill=math.log(1 / 0.07))
+
+    def get_mask_embed(self, images: torch.Tensor, masks: torch.Tensor):
+        """images [B, 3, H, W] in [0, 1]; masks [B, Q, h, w] logits ->
+        [B, Q, embed_dim] float32."""
+        S = self.clip_image_size
+        img = clip_preprocess(resize(images, (S, S), "bilinear"), S).to(self.dtype)
+        m = resize(masks, (S, S), "bilinear")
+        reader_mask = build_mask_reader_mask(m, self.patch_size,
+                                             (S // self.patch_size) ** 2)
+        return self.clip_visual(img, mask_tokens=masks.shape[1],
+                                reader_mask=reader_mask)
+
+    def ensemble(self, mask_embed, pred_open_logits, text_embed,
+                 labels: Labels, category_overlapping_mask) -> torch.Tensor:
+        """Cosine MaskCLIP logits, then the alpha/beta seen/novel geometric
+        ensemble with ``pred_open_logits``. Returns [B, Q, K] float32."""
+        me = l2_normalize(mask_embed)
+        te = l2_normalize(text_embed).to(me.dtype)
+        scale = torch.clamp(torch.exp(self.logit_scale), max=100.0)
+        clip_logits = ensemble_logits_with_labels(
+            scale * torch.einsum("bqc,kc->bqk", me, te), labels, "max")
+        ovl = category_overlapping_mask.float()
+        p = torch.softmax(pred_open_logits.float(), dim=-1)
+        q = torch.softmax(clip_logits.float(), dim=-1)
+        base = torch.log(torch.clamp(p ** (1 - self.alpha) * q ** self.alpha,
+                                     min=1e-9)) * ovl
+        novel = torch.log(torch.clamp(p ** (1 - self.beta) * q ** self.beta,
+                                      min=1e-9)) * (1.0 - ovl)
+        return base + novel
+
+
+def category_overlapping_mask(train_labels, test_labels) -> np.ndarray:
+    """[K] int: 1 where a test category shares a synonym with the training
+    labels."""
+    train_set = {l for label in train_labels for l in label}
+    return np.asarray([int(not train_set.isdisjoint(set(t))) for t in test_labels],
+                      np.int64)
+
+
+class CategoryODISE(nn.Module):
+    """Label-supervised ODISE, eval path: ``encode_vocab``,
+    ``forward_eval_trunk``, ``forward_eval_head`` and ``forward_eval``."""
+
+    def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
+                 category_head: CategoryEmbed, text_encoder: TextTransformer,
+                 clip_head: Optional[PoolingCLIPHead] = None,
+                 train_labels: Labels = (), num_queries: int = 100):
+        super().__init__()
+        self.backbone = backbone
+        self.sem_seg_head = sem_seg_head
+        self.category_head = category_head
+        self.clip_head = clip_head
+        self.text_encoder = text_encoder
+        self.train_labels = tuple(train_labels)
+        self.num_queries = num_queries
+
+    def encode_vocab(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [N, 77] -> pooled projected CLIP text embeds [N, D]."""
+        return self.text_encoder(tokens)[0]
+
+    def forward_eval_trunk(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Vocabulary-independent part: SD backbone, mask decoder, CLIP mask
+        embeds and the mask upsample. images [B, H, W, 3] in [0, 1]."""
+        x = images.permute(0, 3, 1, 2)
+        outputs = self.sem_seg_head(self.backbone(x))
+        trunk = {"mask_embed": outputs["mask_embed"],
+                 "logit_scale": outputs["logit_scale"]}
+        mask_pred = outputs["pred_masks"]
+        if self.clip_head is not None:
+            trunk["clip_mask_embed"] = self.clip_head.get_mask_embed(x, mask_pred)
+        trunk["mask_pred"] = resize(mask_pred.float(), images.shape[1:3],
+                                    "bilinear")
+        return trunk
+
+    def forward_eval_head(self, trunk: Dict[str, torch.Tensor],
+                          text_embed_raw: torch.Tensor, labels: Labels,
+                          clip_text_embed: Optional[torch.Tensor] = None,
+                          clip_labels: Optional[Labels] = None,
+                          category_overlap: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """Vocabulary-dependent tail -> mask_cls [B, Q, K+1]."""
+        cat = self.category_head(text_embed_raw)
+        mask_cls = cal_pred_logits(trunk["mask_embed"], cat["text_embed"],
+                                   cat["null_embed"], trunk["logit_scale"],
+                                   labels)
+        if self.clip_head is not None and clip_text_embed is not None:
+            open_logits = self.clip_head.ensemble(
+                trunk["clip_mask_embed"], mask_cls[..., :-1], clip_text_embed,
+                clip_labels, category_overlap)
+            bg_prob = torch.softmax(mask_cls.float(), dim=-1)[..., -1:]
+            class_probs = torch.softmax(open_logits, dim=-1)
+            mask_cls = torch.log(torch.cat([class_probs * (1.0 - bg_prob),
+                                            bg_prob], dim=-1) + 1e-8)
+        return mask_cls
+
+    def forward_eval(self, images, text_embed_raw, labels: Labels,
+                     clip_text_embed=None, clip_labels=None,
+                     category_overlap=None):
+        """-> (mask_cls [B, Q, K+1], mask_pred [B, Q, H, W])."""
+        trunk = self.forward_eval_trunk(images)
+        mask_cls = self.forward_eval_head(trunk, text_embed_raw, labels,
+                                          clip_text_embed, clip_labels,
+                                          category_overlap)
+        return mask_cls, trunk["mask_pred"]

@@ -1,0 +1,149 @@
+"""Multi-scale deformable attention (forward).
+
+Same signature and layouts as ``odise_tpu.ops.ms_deform_attn.ms_deform_attn``.
+A CUDA tensor goes to the hand-written kernel in
+``odise_torch/csrc/ms_deform_attn.cu``; a CPU tensor goes to
+``ms_deform_attn_torch``, the plain per-level ``grid_sample`` version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = ["ms_deform_attn", "ms_deform_attn_torch"]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ms_deform_attn_torch(value: torch.Tensor,
+                         spatial_shapes: Sequence[Tuple[int, int]],
+                         sampling_locations: torch.Tensor,
+                         attention_weights: torch.Tensor) -> torch.Tensor:
+    """Plain version: per level ``F.grid_sample`` plus a weighted sum, in
+    float32, cast to the value's dtype at the end."""
+    B, _, n_heads, hd = value.shape
+    _, Lq, _, n_levels, n_points, _ = sampling_locations.shape
+    value_list = value.float().split([h * w for h, w in spatial_shapes], dim=1)
+    grids = 2 * sampling_locations.float() - 1
+    weights = attention_weights.float()
+    out = value.new_zeros((B, Lq, n_heads, hd), dtype=torch.float32)
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        v = value_list[lvl].reshape(B, h, w, n_heads, hd)
+        v = v.permute(0, 3, 4, 1, 2).reshape(B * n_heads, hd, h, w)
+        g = grids[:, :, :, lvl].permute(0, 2, 1, 3, 4)
+        g = g.reshape(B * n_heads, Lq, n_points, 2)
+        sampled = F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
+                                align_corners=False)  # [B*H, hd, Lq, P]
+        sampled = sampled.reshape(B, n_heads, hd, Lq, n_points)
+        w_l = weights[:, :, :, lvl].permute(0, 2, 1, 3)  # [B, H, Lq, P]
+        out += torch.einsum("bhcqp,bhqp->bqhc", sampled, w_l)
+    return out.reshape(B, Lq, n_heads * hd).to(value.dtype)
+
+
+def _check(value, spatial_shapes, sampling_locations, attention_weights):
+    if value.dim() != 4:
+        raise ValueError(f"value must be [B, Len_v, heads, head_dim], got "
+                         f"{tuple(value.shape)}")
+    B, Len_v, n_heads, _ = value.shape
+    if sampling_locations.dim() != 6 or sampling_locations.shape[-1] != 2:
+        raise ValueError("sampling_locations must be [B, Len_q, heads, levels, "
+                         f"points, 2], got {tuple(sampling_locations.shape)}")
+    _, Len_q, _, n_levels, n_points, _ = sampling_locations.shape
+    if tuple(sampling_locations.shape[:3]) != (B, Len_q, n_heads):
+        raise ValueError("sampling_locations does not match value in batch or "
+                         "heads")
+    if n_levels != len(spatial_shapes):
+        raise ValueError(f"{len(spatial_shapes)} spatial shapes for "
+                         f"{n_levels} levels")
+    if Len_v != sum(h * w for h, w in spatial_shapes):
+        raise ValueError(f"Len_v={Len_v} != sum(h*w) of {list(spatial_shapes)}")
+    want = (B, Len_q, n_heads, n_levels, n_points)
+    if tuple(attention_weights.shape) != want:
+        raise ValueError(f"attention_weights must be {want}, got "
+                         f"{tuple(attention_weights.shape)}")
+    devices = {t.device for t in (value, sampling_locations, attention_weights)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on different devices: {devices}")
+
+
+def _launch(value, spatial_shapes, sampling_locations, attention_weights):
+    if value.dtype not in _DTYPE_CODE:
+        raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
+    if attention_weights.dtype != value.dtype:
+        raise TypeError(f"attention_weights ({attention_weights.dtype}) must "
+                        f"have the value's dtype ({value.dtype})")
+    if sampling_locations.dtype != torch.float32:
+        raise TypeError("sampling_locations must be float32, got "
+                        f"{sampling_locations.dtype}")
+    for name, t in (("value", value), ("sampling_locations", sampling_locations),
+                    ("attention_weights", attention_weights)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, Len_v, n_heads, hd = value.shape
+    _, Len_q, _, n_levels, n_points, _ = sampling_locations.shape
+    if n_levels > 8:
+        raise ValueError("the kernel takes at most 8 levels")
+
+    lib = _build.load("ms_deform_attn")
+    fn = lib.ms_deform_attn_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    hws, start = [], 0
+    for h, w in spatial_shapes:
+        hws += [int(h), int(w), start]
+        start += int(h) * int(w)
+    hws_arr = (ctypes.c_int * len(hws))(*hws)
+    out = torch.empty((B, Len_q, n_heads * hd), dtype=value.dtype,
+                      device=value.device)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(value.data_ptr(), sampling_locations.data_ptr(),
+                 attention_weights.data_ptr(), out.data_ptr(), B, Len_v,
+                 Len_q, n_heads, hd, n_levels, n_points,
+                 ctypes.addressof(hws_arr), _DTYPE_CODE[value.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"ms_deform_attn kernel launch failed: CUDA error "
+                           f"{err}")
+    ms_deform_attn.launches += 1
+    return out
+
+
+def ms_deform_attn(value: torch.Tensor,
+                   spatial_shapes: Sequence[Tuple[int, int]],
+                   sampling_locations: torch.Tensor,
+                   attention_weights: torch.Tensor) -> torch.Tensor:
+    """Multi-scale deformable attention.
+
+    Args:
+      value: [B, Len_v, n_heads, head_dim] float32 or bfloat16, levels
+        concatenated along Len_v in the order of ``spatial_shapes``.
+      spatial_shapes: (H_l, W_l) per level; sum(H*W) == Len_v.
+      sampling_locations: [B, Len_q, n_heads, n_levels, n_points, 2] float32,
+        normalized xy (0..1 inside the map).
+      attention_weights: [B, Len_q, n_heads, n_levels, n_points], the
+        value's dtype.
+
+    Returns [B, Len_q, n_heads * head_dim] in the value's dtype. On CUDA
+    tensors it launches the kernel (and counts the launch in
+    ``ms_deform_attn.launches``) or raises; on CPU tensors it runs the
+    plain version.
+    """
+    _check(value, spatial_shapes, sampling_locations, attention_weights)
+    if value.device.type == "cuda":
+        return _launch(value, spatial_shapes, sampling_locations,
+                       attention_weights)
+    if value.device.type != "cpu":
+        raise ValueError(f"unsupported device {value.device}")
+    return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
+                                attention_weights)
+
+
+ms_deform_attn.launches = 0

@@ -1,0 +1,234 @@
+"""The port's whole eval slice against the JAX package, and its structure.
+
+* TINY CategoryODISE with the CLIP head in both packages, the same
+  perturbed parameters: forward_eval_trunk, forward_eval_head,
+  semantic_inference, and panoptic_inference on identical inputs.
+* The FULL model built on the meta device against the shapes of the JAX
+  FULL eval model (odise_tpu/model_zoo/bench_manifest.json.gz).
+* The port imports no JAX, and the stored SD noise is JAX's.
+"""
+
+import gzip
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from odise_tpu.model_zoo.factory import build_category_odise as jax_build  # noqa: E402
+from odise_tpu.models import inference as jinf  # noqa: E402
+from odise_tpu.models.odise import CategoryODISE as JCategoryODISE  # noqa: E402
+from odise_torch.model_zoo.factory import build_category_odise  # noqa: E402
+from odise_torch.model_zoo.from_jax import flax_leaf_to_torch, flax_to_torch_name  # noqa: E402
+from odise_torch.models import inference  # noqa: E402
+from odise_torch.models.clip.tokenizer import tokenize  # noqa: E402
+
+from .test_torch_towers import perturbed_params  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+# 128-px backbone input: at TINY's default 64 px the UNet's last level is
+# 1x1 with one channel per GroupNorm group, a normalisation of a single
+# value that amplifies rounding noise by ~300x in both packages
+SIZE = 128
+VOCAB = (("cat", "feline"), ("dog",), ("grass",))
+THING = np.array([True, True, False])
+
+
+@pytest.fixture(scope="module")
+def slice_outputs():
+    jm = jax_build("tiny", dtype=jnp.float32, backbone_in_size=(SIZE, SIZE))
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)), jnp.zeros((3, 16)),
+        method=JCategoryODISE.init_full))
+    params = perturbed_params(shapes, seed=7)
+    pm = build_category_odise("tiny", device="cpu", backbone_in_size=(SIZE, SIZE))
+    from odise_torch.model_zoo.from_jax import load_flax_params
+
+    load_flax_params(pm, params)
+
+    rng = np.random.RandomState(8)
+    img = rng.rand(1, SIZE, SIZE, 3).astype(np.float32)
+    tokens = tokenize([s for syns in VOCAB for s in syns])
+    prompted = tokenize([f"a photo of a {syns[0]}" for syns in VOCAB])
+    overlap = np.array([1, 0, 1], np.int32)
+    clip_labels = tuple((s[0],) for s in VOCAB)
+
+    def j_eval(p, x, tok, ptok, ovl):
+        trunk = jm.apply(p, x, method=JCategoryODISE.forward_eval_trunk)
+        text = jm.apply(p, tok, method=JCategoryODISE.encode_vocab)
+        clip_text = jm.apply(p, ptok, method=JCategoryODISE.encode_vocab)
+        head_in = {k: v for k, v in trunk.items() if k != "mask_pred"}
+        mask_cls = jm.apply(p, head_in, text, VOCAB, clip_text, clip_labels, ovl,
+                            method=JCategoryODISE.forward_eval_head)
+        return trunk, text, mask_cls
+
+    j_trunk, j_text, j_cls = jax.jit(j_eval)(
+        params, jnp.asarray(img), jnp.asarray(tokens), jnp.asarray(prompted),
+        jnp.asarray(overlap))
+    with torch.no_grad():
+        p_trunk = pm.forward_eval_trunk(torch.from_numpy(img))
+        p_text = pm.encode_vocab(torch.from_numpy(tokens).long())
+        p_clip_text = pm.encode_vocab(torch.from_numpy(prompted).long())
+        p_cls = pm.forward_eval_head(p_trunk, p_text, VOCAB, p_clip_text,
+                                     clip_labels, torch.from_numpy(overlap))
+    return dict(j_trunk=j_trunk, j_text=j_text, j_cls=np.asarray(j_cls),
+                p_trunk=p_trunk, p_text=p_text, p_cls=p_cls.numpy())
+
+
+def test_trunk_matches_jax(slice_outputs):
+    """Trunk dict at 1e-4: float32 through SD, the deformable encoder and
+    the masked decoder (measured gap ~4e-5 on mask logits of magnitude ~10)."""
+    j, p = slice_outputs["j_trunk"], slice_outputs["p_trunk"]
+    assert set(j) == set(p)
+    assert p["mask_pred"].shape == (1, 10, SIZE, SIZE)
+    for k in j:
+        np.testing.assert_allclose(p[k].numpy(), np.asarray(j[k]), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+
+
+def test_head_matches_jax(slice_outputs):
+    """encode_vocab at 1e-5 and mask_cls [1, Q, K+1] at 1e-4."""
+    np.testing.assert_allclose(slice_outputs["p_text"].numpy(),
+                               np.asarray(slice_outputs["j_text"]), rtol=1e-5, atol=1e-5)
+    assert slice_outputs["p_cls"].shape == (1, 10, len(VOCAB) + 1)
+    np.testing.assert_allclose(slice_outputs["p_cls"], slice_outputs["j_cls"],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_semantic_inference_matches_jax(slice_outputs):
+    mask_cls = slice_outputs["j_cls"][0]
+    mask_pred = np.asarray(slice_outputs["j_trunk"]["mask_pred"])[0]
+    ref = jinf.semantic_inference(jnp.asarray(mask_cls), jnp.asarray(mask_pred))
+    out = inference.semantic_inference(torch.tensor(mask_cls),
+                                       torch.tensor(mask_pred))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def _panoptic_case(case, slice_outputs):
+    if case == "model":
+        return (np.array(slice_outputs["j_cls"][0]),
+                np.array(slice_outputs["j_trunk"]["mask_pred"])[0])
+    # many segments: query q owns block q of a 3x4 grid (plus noise), two
+    # queries of the stuff class 2 merge into one segment, query 7 is null,
+    # query 10 is swallowed by query 11 (fails the overlap threshold)
+    rng = np.random.RandomState(9)
+    Q = 12
+    mask_cls = rng.randn(Q, 4).astype(np.float32)
+    mask_cls[np.arange(Q), rng.randint(0, 3, Q)] += 8.0
+    mask_cls[3, 2] = mask_cls[5, 2] = 20.0
+    mask_cls[7, 3] = 30.0
+    mask_pred = rng.randn(Q, 48, 48).astype(np.float32) - 6.0
+    for q in range(Q):
+        r, c = divmod(q, 4)
+        mask_pred[q, r * 16:(r + 1) * 16, c * 12:(c + 1) * 12] += 12.0
+    mask_pred[11, 32:48, 24:48] += 12.0
+    return mask_cls, mask_pred
+
+
+@pytest.mark.parametrize("case", ["model", "synthetic"])
+def test_panoptic_inference_agrees_exactly(case, slice_outputs):
+    mask_cls, mask_pred = _panoptic_case(case, slice_outputs)
+    ref = jinf.panoptic_inference(jnp.asarray(mask_cls), jnp.asarray(mask_pred),
+                                  jnp.asarray(THING), object_mask_threshold=0.0,
+                                  overlap_threshold=0.8)
+    out = inference.panoptic_inference(torch.from_numpy(mask_cls),
+                                       torch.from_numpy(mask_pred),
+                                       torch.from_numpy(THING),
+                                       object_mask_threshold=0.0,
+                                       overlap_threshold=0.8)
+    for a, b in zip(out, ref):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    if case == "synthetic":
+        assert int(out.num_segments) >= 3
+
+
+def test_full_structure_matches_jax_manifest():
+    """The FULL port model on the meta device has one tensor for each leaf
+    of the JAX FULL eval model, of the same shape after the layout map
+    (the vocabulary text tower, absent from the manifest, aside)."""
+    with gzip.open(REPO / "odise_tpu/model_zoo/bench_manifest.json.gz", "rt") as f:
+        manifest = json.load(f)
+    labels = tuple((f"category {i}",) for i in range(133))
+    model = build_category_odise("full", train_labels=labels, device="meta",
+                                 dtype=torch.bfloat16)
+    port = {k: tuple(v.shape) for k, v in model.state_dict().items()
+            if not k.startswith("text_encoder.")}
+    mapped = {}
+    for key, (shape, _) in manifest.items():
+        path = tuple(key.split("/")[1:])
+        mapped[flax_to_torch_name(path)] = tuple(
+            flax_leaf_to_torch(path, np.empty(shape, np.uint8)).shape)
+    assert len(manifest) == 2146
+    assert port == mapped
+    n = sum(v.numel() for k, v in model.state_dict().items())
+    assert n > 1_500_000_000  # SD + two ViT-L + text towers
+
+
+def test_entry_point_needs_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_category_odise("tiny")
+    with pytest.raises(ValueError):
+        build_category_odise("full", device="cpu")  # needs train_labels
+
+
+def test_port_imports_no_jax():
+    """With jax, flax and odise_tpu unimportable: import every odise_torch
+    module, build TINY on the CPU and run forward_eval. chip_smoke.py must
+    not import them either."""
+    script = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "optax", "odise_tpu"):
+            sys.modules[name] = None
+        import importlib, pkgutil
+        import torch
+        import odise_torch
+        for m in pkgutil.walk_packages(odise_torch.__path__, "odise_torch."):
+            importlib.import_module(m.name)
+        from odise_torch.model_zoo.factory import build_category_odise
+        from odise_torch.models.clip.tokenizer import tokenize
+        model = build_category_odise("tiny", device="cpu")
+        with torch.no_grad():
+            text = model.encode_vocab(torch.from_numpy(tokenize(["a", "b", "c"])).long())
+            cls, pred = model.forward_eval(torch.rand(1, 64, 64, 3), text,
+                                           (("a",), ("b",), ("c",)))
+        assert cls.shape == (1, 10, 4) and pred.shape == (1, 10, 64, 64)
+        assert bool(torch.isfinite(cls).all()) and bool(torch.isfinite(pred).all())
+        assert not any(k.split(".")[0] in ("jax", "flax", "odise_tpu")
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr
+
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported.add((node.module or "").split(".")[0])
+    assert "odise_torch" in imported
+    assert not imported & {"jax", "jaxlib", "flax", "optax", "odise_tpu"}
+
+
+def test_shared_noise_is_jax_prng_key_42():
+    stored = np.load(REPO / "odise_torch/models/backbone/shared_noise_seed42.npy")
+    ref = np.asarray(jax.random.normal(jax.random.PRNGKey(42), (1, 64, 64, 4),
+                                       jnp.float32))
+    assert stored.dtype == np.float32 and stored.shape == (1, 64, 64, 4)
+    assert np.array_equal(stored.view(np.uint32), ref.view(np.uint32))
