@@ -11,29 +11,52 @@
 //
 // with zero padding outside each level (grid_sample, align_corners=False).
 //
-// What bounds it on an H100. At the main path's shapes (levels 128^2, 64^2,
-// 32^2; 21504 queries, 8 heads of 32 channels, 4 points, bf16 values and
+// What bounds it on an H100. At the main path's shapes (levels 32^2, 64^2,
+// 128^2; 21504 queries, 8 heads of 32 channels, 4 points, bf16 values and
 // weights, f32 locations) one call must move about 43 MB through device
 // memory: value 11.0 MB, locations 16.5 MB, attention 4.1 MB, output 11.0 MB,
-// about 13 us at 3.35 TB/s. Its arithmetic (12 samples x 4 corners x 32
-// channels of f32 fused multiply-adds per query and head, about 0.53 GFLOP)
-// is about 8 us at the 67 TFLOP/s of f32 outside the tensor cores. So the
-// floor is memory traffic. In practice the gathers decide: about 8.3 M corner
-// rows of 64 B (0.53 GB) are read at data-dependent addresses. The 11 MB value
-// table fits in the 50 MB L2, so most of those reads should hit L2, and the
-// kernel is bound by L2 gather throughput and by the latency of dependent
-// loads rather than by HBM.
+// about 13 us at 3.35 TB/s. Its arithmetic (about 0.5 GFLOP of f32 fused
+// multiply-adds over the corners) is about 8 us at 67 TFLOP/s. So the floor
+// is memory traffic. In practice the gathers decide: about 8.3 M corner rows
+// of 64 B (0.53 GB) are read at data-dependent addresses. The 11 MB value
+// table fits in the 50 MB L2 but no head's slice of the 64^2 or 128^2 level
+// fits in a block's 227 KB of shared memory, so the TPU kernel's
+// VMEM-resident quad table does not carry over: the kernel gathers from
+// L1/L2, and is bound by how many independent gathers it keeps in flight and
+// how many bytes each one moves.
 //
-// What this first design does about it. One warp per (b, q, head); lane c
-// owns channel c (a loop covers head_dim other than 32), so each bilinear
-// corner is one coalesced 64 B row read (bf16) by the warp. Every lane
-// computes the corner weights itself from the same broadcast location load,
-// in f32, with the same formulas as `_level_idx_w4`; a sample whose corners
-// all fall outside its level is skipped before any value load. The sum is
-// kept in f32 and written once in the value's type. Nothing is staged in
-// shared memory, loads are 2 or 4 B per lane, and each warp walks its 12
-// samples in order; shared-memory staging, 16 B vector loads and several
-// queries per warp are left for later work.
+// What the design does about it.
+//  - One thread owns one 16 B chunk of one head's channels (8 bf16 or
+//    4 f32) of one query. At head_dim 32 in bf16 a head is 4 threads and a
+//    warp is one query's 8 heads, so a corner read is one 16 B load per
+//    thread (one warp-wide load fetches 8 corner rows) and the output store
+//    is 512 contiguous bytes. Threads run over (b, q, head, chunk) in that
+//    order, so a block's queries are neighbours in raster order and sample
+//    neighbouring pixels that L1 serves again.
+//  - Corners are branch-free: each corner's row and column are clamped into
+//    the level, so every load is in bounds, and a corner outside the level
+//    is dropped by selects (its weight and its loaded bits set to 0), so it
+//    adds exactly +0 whatever the location (huge, infinite or NaN). The
+//    location is clamped before its conversion to int. The P points of a
+//    level (a template parameter, 4 on the main path) issue their 4P loads
+//    together before any multiply-add. With the main path's counts (3 levels
+//    of 4 points) known at compile time the level loop unrolls and the next
+//    level's locations load early; other counts take a generic loop.
+//  - Registers are capped at 85 so that an SM holds 24 warps (6 blocks of
+//    128 threads); the main-path variant fits in 80 without spilling. On the
+//    main path's inputs the capped, unrolled kernel measured faster than the
+//    uncapped one with 256-thread blocks and a runtime level loop (PERF.md).
+// Measured so (PERF.md), it takes about as long with its inputs in L2 as on
+// the main path, where the layers before it have just written them: the
+// 0.53 GB of gathered corner rows from L1/L2, not device memory, bound it.
+//  - Locations (2P f32) and attention weights (P values) of a level are read
+//    with 16 B and 8 B vector loads where the chunk is 16 B; the wrapper then
+//    checks that all three inputs are 16 B aligned.
+//  - A head whose width is not a multiple of 16 B takes one-element chunks:
+//    the same kernel with scalar loads.
+// The sum runs over levels, points, then corners (y0,x0), (y0,x1), (y1,x0),
+// (y1,x1), each as fma(w, v, acc) in f32 with w = bilinear * attention, and
+// is written once in the value's type.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,6 +65,9 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
+constexpr int kBlockThreads = 128;  // odise_torch/ops/ms_deform_attn.py BLOCK_THREADS
+// At most 85 registers a thread, so that an SM holds 6 blocks (24 warps).
+constexpr int kMinBlocksPerSM = 6;
 
 struct Levels {
   int n;
@@ -62,74 +88,233 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ float2 bf16x2(unsigned bits) {
+  __nv_bfloat162 v;
+  *reinterpret_cast<unsigned*>(&v) = bits;
+  return __bfloat1622float2(v);
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// VEC consecutive elements of T: one load, a select to zero, VEC f32
+// multiply-adds, one store.
+template <typename T, int VEC>
+struct Chunk;
+
+template <>
+struct Chunk<float, 4> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ Raw keep(bool k, Raw r) {
+    return k ? r : make_uint4(0u, 0u, 0u, 0u);
+  }
+  static __device__ __forceinline__ void fma(float w, Raw r, float* acc) {
+    acc[0] = fmaf(w, __uint_as_float(r.x), acc[0]);
+    acc[1] = fmaf(w, __uint_as_float(r.y), acc[1]);
+    acc[2] = fmaf(w, __uint_as_float(r.z), acc[2]);
+    acc[3] = fmaf(w, __uint_as_float(r.w), acc[3]);
+  }
+  static __device__ __forceinline__ void store(float* o, const float* acc) {
+    *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+};
+
+template <>
+struct Chunk<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ Raw keep(bool k, Raw r) {
+    return k ? r : make_uint4(0u, 0u, 0u, 0u);
+  }
+  static __device__ __forceinline__ void fma(float w, Raw r, float* acc) {
+    const unsigned words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = bf16x2(words[i]);
+      acc[2 * i] = fmaf(w, f.x, acc[2 * i]);
+      acc[2 * i + 1] = fmaf(w, f.y, acc[2 * i + 1]);
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* o, const float* acc) {
+    *reinterpret_cast<uint4*>(o) =
+        make_uint4(bf16x2_bits(acc[0], acc[1]), bf16x2_bits(acc[2], acc[3]),
+                   bf16x2_bits(acc[4], acc[5]), bf16x2_bits(acc[6], acc[7]));
+  }
+};
+
 template <typename T>
-__global__ void ms_deform_attn_fwd_kernel(const T* __restrict__ value,
-                                          const float* __restrict__ loc,
-                                          const T* __restrict__ attn,
-                                          T* __restrict__ out, int64_t n_warps,
-                                          int Lv, int Lq, int H, int D, int P,
-                                          Levels lv) {
-  const int64_t warp =
-      (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;
+struct Chunk<T, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ Raw load(const T* p) { return to_f32(*p); }
+  static __device__ __forceinline__ Raw keep(bool k, Raw r) { return k ? r : 0.f; }
+  static __device__ __forceinline__ void fma(float w, Raw r, float* acc) {
+    acc[0] = fmaf(w, r, acc[0]);
+  }
+  static __device__ __forceinline__ void store(T* o, const float* acc) {
+    o[0] = from_f32<T>(acc[0]);
+  }
+};
 
-  // warp = (b * Lq + q) * H + h
-  const int h = (int)(warp % H);
-  const int64_t b = warp / H / Lq;
-  const int n_samples = lv.n * P;
-  const float* loc_w = loc + warp * n_samples * 2;
-  const T* attn_w = attn + warp * n_samples;
+// The G points' (x, y) and attention weights from position s0 on.
+template <int G, bool VEC_IN>
+__device__ __forceinline__ void load_xy(const float* p, float* xy) {
+  if constexpr (VEC_IN && (2 * G) % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2 * G; i += 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p + i));
+      xy[i] = v.x; xy[i + 1] = v.y; xy[i + 2] = v.z; xy[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2 * G; ++i) xy[i] = __ldg(p + i);
+  }
+}
+
+template <int G, bool VEC_IN>
+__device__ __forceinline__ void load_attn(const float* p, float* a) {
+  if constexpr (VEC_IN && G % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < G; i += 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p + i));
+      a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < G; ++i) a[i] = __ldg(p + i);
+  }
+}
+
+template <int G, bool VEC_IN>
+__device__ __forceinline__ void load_attn(const __nv_bfloat16* p, float* a) {
+  if constexpr (VEC_IN && G % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < G; i += 4) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p + i));
+      const float2 lo = bf16x2(v.x), hi = bf16x2(v.y);
+      a[i] = lo.x; a[i + 1] = lo.y; a[i + 2] = hi.x; a[i + 3] = hi.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < G; ++i) a[i] = to_f32(p[i]);
+  }
+}
+
+// VEC: elements per chunk (16 B worth, or 1). LT, PT: levels and points per
+// level when they are known at compile time (the main path's 3 and 4), else
+// 0 and `lv.n`, `P` are read. Known counts let the level loop unroll, so the
+// next level's locations are loaded while this level's gathers are in flight.
+template <typename T, int VEC, int LT, int PT>
+__global__ void __launch_bounds__(kBlockThreads, kMinBlocksPerSM)
+ms_deform_attn_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                          const T* __restrict__ attn, T* __restrict__ out,
+                          int64_t n_threads, int Lv, int Lq, int H, int D,
+                          int P_arg, Levels lv) {
+  using C = Chunk<T, VEC>;
+  constexpr int G = PT > 0 ? PT : 1;  // points whose loads are issued together
+  constexpr bool VEC_IN = PT > 0 && VEC > 1;  // inputs are 16 B aligned
+  const int P = PT > 0 ? PT : P_arg;
+  const int n_levels = LT > 0 ? LT : lv.n;
+
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_threads) return;
+  // t = ((b * Lq + q) * H + h) * chunks + c
+  const int chunks = D / VEC;
+  const int64_t qh = t / chunks;
+  const int c = (int)(t - qh * chunks);
+  const int h = (int)(qh % H);
+  const int64_t b = qh / H / Lq;
+  const int n_samples = n_levels * P;
+  const float* loc_q = loc + qh * n_samples * 2;
+  const T* attn_q = attn + qh * n_samples;
   const int64_t row_stride = (int64_t)H * D;  // elements between value rows
-  const T* value_bh = value + b * Lv * row_stride + (int64_t)h * D;
+  const T* value_bhc = value + b * Lv * row_stride + (int64_t)h * D + c * VEC;
 
-  for (int c0 = 0; c0 < D; c0 += 32) {
-    const int c = c0 + lane;
-    const bool live = c < D;
-    float acc = 0.f;
-    for (int l = 0; l < lv.n; ++l) {
-      const int hl = lv.h[l];
-      const int wl = lv.w[l];
-      const T* v_l = value_bh + (int64_t)lv.start[l] * row_stride + c;
-      for (int p = 0; p < P; ++p) {
-        const int s = l * P + p;
-        const float x = loc_w[2 * s] * (float)wl - 0.5f;
-        const float y = loc_w[2 * s + 1] * (float)hl - 0.5f;
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+
+#pragma unroll(LT > 0 ? LT : 1)
+  for (int l = 0; l < n_levels; ++l) {
+    const int hl = lv.h[l];
+    const int wl = lv.w[l];
+    const T* v_l = value_bhc + (int64_t)lv.start[l] * row_stride;
+    for (int p0 = 0; p0 < P; p0 += G) {
+      const int s0 = l * P + p0;
+      float xy[2 * G];
+      float a[G];
+      load_xy<G, VEC_IN>(loc_q + 2 * s0, xy);
+      load_attn<G, VEC_IN>(attn_q + s0, a);
+      typename C::Raw raw[G][4];
+      float wt[G][4];
+      bool in[G][4];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float x = xy[2 * g] * (float)wl - 0.5f;
+        const float y = xy[2 * g + 1] * (float)hl - 0.5f;
         const float x0f = floorf(x);
         const float y0f = floorf(y);
-        // all four corners outside the level (this also rejects NaN and
-        // values too large for an int)
-        if (!(x0f >= -1.f && x0f <= (float)(wl - 1) && y0f >= -1.f &&
-              y0f <= (float)(hl - 1)))
-          continue;
-        const float a = to_f32(attn_w[s]);
-        const int x0 = (int)x0f;
-        const int y0 = (int)y0f;
+        // some corner lies inside the level; false for NaN and for values
+        // too large for an int, which are then never converted
+        const bool near = x0f >= -1.f && x0f <= (float)(wl - 1) && y0f >= -1.f &&
+                          y0f <= (float)(hl - 1);
+        const int x0 = (int)(near ? x0f : 0.f);
+        const int y0 = (int)(near ? y0f : 0.f);
         const float fx = x - x0f;
         const float fy = y - y0f;
-        const bool x0_in = x0 >= 0;
-        const bool x1_in = x0 + 1 <= wl - 1;
-        const bool y0_in = y0 >= 0;
-        const bool y1_in = y0 + 1 <= hl - 1;
-        if (!live) continue;
-        if (y0_in) {
-          const T* row = v_l + (int64_t)y0 * wl * row_stride;
-          if (x0_in)
-            acc += (1.f - fx) * (1.f - fy) * a * to_f32(row[(int64_t)x0 * row_stride]);
-          if (x1_in)
-            acc += fx * (1.f - fy) * a * to_f32(row[(int64_t)(x0 + 1) * row_stride]);
-        }
-        if (y1_in) {
-          const T* row = v_l + (int64_t)(y0 + 1) * wl * row_stride;
-          if (x0_in)
-            acc += (1.f - fx) * fy * a * to_f32(row[(int64_t)x0 * row_stride]);
-          if (x1_in)
-            acc += fx * fy * a * to_f32(row[(int64_t)(x0 + 1) * row_stride]);
-        }
+        const bool x0_in = near && x0 >= 0;
+        const bool x1_in = near && x0 + 1 <= wl - 1;
+        const bool y0_in = near && y0 >= 0;
+        const bool y1_in = near && y0 + 1 <= hl - 1;
+        const int64_t cx0 = (int64_t)max(x0, 0) * row_stride;
+        const int64_t cx1 = (int64_t)min(x0 + 1, wl - 1) * row_stride;
+        const T* r0 = v_l + (int64_t)max(y0, 0) * wl * row_stride;
+        const T* r1 = v_l + (int64_t)min(y0 + 1, hl - 1) * wl * row_stride;
+        raw[g][0] = C::load(r0 + cx0);
+        raw[g][1] = C::load(r0 + cx1);
+        raw[g][2] = C::load(r1 + cx0);
+        raw[g][3] = C::load(r1 + cx1);
+        in[g][0] = y0_in && x0_in;
+        in[g][1] = y0_in && x1_in;
+        in[g][2] = y1_in && x0_in;
+        in[g][3] = y1_in && x1_in;
+        wt[g][0] = in[g][0] ? (1.f - fx) * (1.f - fy) * a[g] : 0.f;
+        wt[g][1] = in[g][1] ? fx * (1.f - fy) * a[g] : 0.f;
+        wt[g][2] = in[g][2] ? (1.f - fx) * fy * a[g] : 0.f;
+        wt[g][3] = in[g][3] ? fx * fy * a[g] : 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) C::fma(wt[g][k], C::keep(in[g][k], raw[g][k]), acc);
       }
     }
-    if (live) out[warp * D + c] = from_f32<T>(acc);
   }
+
+  C::store(out + t * VEC, acc);
+}
+
+template <typename T, int VEC>
+void launch(const void* value, const void* loc, const void* attn, void* out,
+            int64_t n_threads, int Lv, int Lq, int H, int D, int P,
+            const Levels& lv, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((n_threads + kBlockThreads - 1) / kBlockThreads);
+  const T* v = static_cast<const T*>(value);
+  const float* l = static_cast<const float*>(loc);
+  const T* a = static_cast<const T*>(attn);
+  T* o = static_cast<T*>(out);
+  if (lv.n == 3 && P == 4)
+    ms_deform_attn_fwd_kernel<T, VEC, 3, 4><<<blocks, kBlockThreads, 0, s>>>(
+        v, l, a, o, n_threads, Lv, Lq, H, D, P, lv);
+  else
+    ms_deform_attn_fwd_kernel<T, VEC, 0, 0><<<blocks, kBlockThreads, 0, s>>>(
+        v, l, a, o, n_threads, Lv, Lq, H, D, P, lv);
 }
 
 }  // namespace
@@ -137,15 +322,20 @@ __global__ void ms_deform_attn_fwd_kernel(const T* __restrict__ value,
 // C entry point, loaded with ctypes. Pointers are device pointers except
 // `level_hws`, a host array of 3 * n_levels ints: (h, w, start row) per
 // level. `dtype` is 0 for float32 and 1 for bfloat16 (value, attention and
-// output share it; locations are always float32). Returns the
+// output share it; locations are always float32). `vec` is the chunk width
+// in elements that the wrapper's launch plan chose: 16 bytes' worth (then
+// value, loc and attn must be 16 B aligned) or 1. Returns the
 // cudaGetLastError() of the launch.
 extern "C" int ms_deform_attn_forward(const void* value, const void* loc,
                                       const void* attn, void* out, int B,
                                       int Lv, int Lq, int H, int D,
                                       int n_levels, int P,
-                                      const void* level_hws, int dtype,
+                                      const void* level_hws, int dtype, int vec,
                                       void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (n_levels < 1 || n_levels > kMaxLevels || P < 1) return (int)cudaErrorInvalidValue;
+  const int elem = dtype == 0 ? 4 : 2;
+  if ((dtype != 0 && dtype != 1) || (vec != 1 && vec * elem != 16) || D % vec != 0)
+    return (int)cudaErrorInvalidValue;
   Levels lv;
   lv.n = n_levels;
   const int* hws = static_cast<const int*>(level_hws);
@@ -154,24 +344,20 @@ extern "C" int ms_deform_attn_forward(const void* value, const void* loc,
     lv.w[l] = hws[3 * l + 1];
     lv.start[l] = hws[3 * l + 2];
   }
-  const int64_t n_warps = (int64_t)B * Lq * H;
-  if (n_warps == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (n_warps + (threads / 32) - 1) / (threads / 32);
+  const int64_t n_threads = (int64_t)B * Lq * H * (D / vec);
+  if (n_threads == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();  // clear an earlier, unrelated error
   if (dtype == 0) {
-    ms_deform_attn_fwd_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(
-        static_cast<const float*>(value), static_cast<const float*>(loc),
-        static_cast<const float*>(attn), static_cast<float*>(out), n_warps, Lv,
-        Lq, H, D, P, lv);
-  } else if (dtype == 1) {
-    ms_deform_attn_fwd_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(loc),
-        static_cast<const __nv_bfloat16*>(attn),
-        static_cast<__nv_bfloat16*>(out), n_warps, Lv, Lq, H, D, P, lv);
+    if (vec == 1)
+      launch<float, 1>(value, loc, attn, out, n_threads, Lv, Lq, H, D, P, lv, s);
+    else
+      launch<float, 4>(value, loc, attn, out, n_threads, Lv, Lq, H, D, P, lv, s);
   } else {
-    return (int)cudaErrorInvalidValue;
+    if (vec == 1)
+      launch<__nv_bfloat16, 1>(value, loc, attn, out, n_threads, Lv, Lq, H, D, P, lv, s);
+    else
+      launch<__nv_bfloat16, 8>(value, loc, attn, out, n_threads, Lv, Lq, H, D, P, lv, s);
   }
   return (int)cudaGetLastError();
 }

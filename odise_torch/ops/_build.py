@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled for
 ``sm_90a`` into ``odise_torch/_build/lib<name>_<hash>.so`` at first use; the
 hash covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing is built when this module is
-imported.
+unchanged one is loaded as it is. nvcc's output, with ptxas's registers and
+spills for each kernel, is kept beside the library (``build_log``). Nothing
+is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -39,6 +40,10 @@ def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> Path:
+    return library_path(name).with_suffix(".log")
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:
@@ -62,6 +67,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
             os.unlink(tmp)
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            so.with_suffix(".log").write_text(log)
             os.replace(tmp, so)  # atomic: a reader never sees half a library
     if errors:
         raise RuntimeError("\n".join(errors))

@@ -9,14 +9,15 @@ A CUDA tensor goes to the hand-written kernel in
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["ms_deform_attn", "ms_deform_attn_torch"]
+__all__ = ["launch_plan", "ms_deform_attn", "ms_deform_attn_torch"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -72,6 +73,43 @@ def _check(value, spatial_shapes, sampling_locations, attention_weights):
         raise ValueError(f"inputs lie on different devices: {devices}")
 
 
+BLOCK_THREADS = 128  # kBlockThreads in the kernel's source
+
+
+class LaunchPlan(NamedTuple):
+    chunk_elems: int       # value elements a thread reads per corner
+    chunk_bytes: int
+    threads_per_head: int
+    threads: int
+    warps: int
+    blocks: int
+
+
+def launch_plan(batch: int, len_q: int, n_heads: int, head_dim: int,
+                dtype: torch.dtype) -> LaunchPlan:
+    """How the kernel covers an output of [batch, len_q, n_heads, head_dim]:
+    one thread per 16-byte chunk of a head's channels where head_dim fills
+    whole 16-byte chunks, else one thread per channel."""
+    elem = dtype.itemsize
+    vec = 16 // elem if head_dim * elem % 16 == 0 else 1
+    per_head = head_dim // vec
+    threads = batch * len_q * n_heads * per_head
+    return LaunchPlan(chunk_elems=vec, chunk_bytes=vec * elem,
+                      threads_per_head=per_head, threads=threads,
+                      warps=-(-threads // 32),
+                      blocks=-(-threads // BLOCK_THREADS))
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_fn():
+    """The kernel's C entry point, built and loaded once per process."""
+    fn = _build.load("ms_deform_attn").ms_deform_attn_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(value, spatial_shapes, sampling_locations, attention_weights):
     if value.dtype not in _DTYPE_CODE:
         raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
@@ -81,20 +119,21 @@ def _launch(value, spatial_shapes, sampling_locations, attention_weights):
     if sampling_locations.dtype != torch.float32:
         raise TypeError("sampling_locations must be float32, got "
                         f"{sampling_locations.dtype}")
-    for name, t in (("value", value), ("sampling_locations", sampling_locations),
-                    ("attention_weights", attention_weights)):
+    inputs = (("value", value), ("sampling_locations", sampling_locations),
+              ("attention_weights", attention_weights))
+    for name, t in inputs:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     B, Len_v, n_heads, hd = value.shape
     _, Len_q, _, n_levels, n_points, _ = sampling_locations.shape
     if n_levels > 8:
         raise ValueError("the kernel takes at most 8 levels")
-
-    lib = _build.load("ms_deform_attn")
-    fn = lib.ms_deform_attn_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    plan = launch_plan(B, Len_q, n_heads, hd, value.dtype)
+    if plan.chunk_bytes == 16:
+        for name, t in inputs:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned for the "
+                                 "kernel's 16-byte chunks")
 
     hws, start = [], 0
     for h, w in spatial_shapes:
@@ -103,12 +142,14 @@ def _launch(value, spatial_shapes, sampling_locations, attention_weights):
     hws_arr = (ctypes.c_int * len(hws))(*hws)
     out = torch.empty((B, Len_q, n_heads * hd), dtype=value.dtype,
                       device=value.device)
+    fn = _forward_fn()
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(value.data_ptr(), sampling_locations.data_ptr(),
                  attention_weights.data_ptr(), out.data_ptr(), B, Len_v,
                  Len_q, n_heads, hd, n_levels, n_points,
-                 ctypes.addressof(hws_arr), _DTYPE_CODE[value.dtype], stream)
+                 ctypes.addressof(hws_arr), _DTYPE_CODE[value.dtype],
+                 plan.chunk_elems, stream)
     if err != 0:
         raise RuntimeError(f"ms_deform_attn kernel launch failed: CUDA error "
                            f"{err}")

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_torch  # noqa: E402
 
 SHAPES = [(40, 40), (6, 8), (3, 4)]
+MAIN_PATH_SHAPES = [(32, 32), (64, 64), (128, 128)]  # 1024-px image, coarsest first
 
 
 @pytest.fixture
@@ -23,13 +24,13 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _inputs(hd, dtype, seed=0, B=2, H=3, P=4, Lq=50):
+def _inputs(hd, dtype, seed=0, B=2, H=3, P=4, Lq=50, shapes=SHAPES):
     rng = np.random.RandomState(seed)
-    L = len(SHAPES)
-    Lv = sum(h * w for h, w in SHAPES)
+    L = len(shapes)
+    Lv = sum(h * w for h, w in shapes)
     value = rng.randn(B, Lv, H, hd).astype(np.float32)
     loc = (rng.rand(B, Lq, H, L, P, 2) * 1.6 - 0.3).astype(np.float32)
-    for lvl, (h, w) in enumerate(SHAPES):  # pixel centres on a third
+    for lvl, (h, w) in enumerate(shapes):  # pixel centres on a third
         loc[:, : Lq // 3, :, lvl, :, 0] = (rng.randint(0, w, (B, Lq // 3, H, P)) + 0.5) / w
         loc[:, : Lq // 3, :, lvl, :, 1] = (rng.randint(0, h, (B, Lq // 3, H, P)) + 0.5) / h
     att = rng.rand(B, Lq, H, L, P).astype(np.float32)
@@ -38,21 +39,80 @@ def _inputs(hd, dtype, seed=0, B=2, H=3, P=4, Lq=50):
             torch.from_numpy(att).cuda().to(dtype))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("hd", [8, 32, 40])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_kernel_matches_plain(cuda, hd, dtype):
+def _tolerance(ref):
     """float32: 1e-5 (another summation order). bf16: both round their
     float32 sum to bf16 once, so two bf16 ulps of the largest output."""
-    v, l, a = _inputs(hd, dtype)
+    if ref.dtype == torch.float32:
+        return 1e-5
+    return 2 * float(ref.abs().max()) * 2.0 ** -8
+
+
+def _check(v, l, a, shapes=SHAPES):
     before = ms_deform_attn.launches
-    out = ms_deform_attn(v, SHAPES, l, a)
+    out = ms_deform_attn(v, shapes, l, a)
     torch.cuda.synchronize()
     assert ms_deform_attn.launches == before + 1
-    assert out.dtype == dtype and out.shape == (2, 50, 3 * hd)
-    ref = ms_deform_attn_torch(v, SHAPES, l, a).float()
-    tol = 1e-5 if dtype == torch.float32 else 2 * float(ref.abs().max()) * 2.0 ** -8
-    assert float((out.float() - ref).abs().max()) <= tol
+    B, Lq, H = l.shape[:3]
+    assert out.dtype == v.dtype and out.shape == (B, Lq, H * v.shape[-1])
+    ref = ms_deform_attn_torch(v, shapes, l, a)
+    assert float((out.float() - ref.float()).abs().max()) <= _tolerance(ref)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [6, 8, 32, 40])  # 6: one-element chunks
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_matches_plain(cuda, hd, dtype):
+    _check(*_inputs(hd, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_matches_plain_at_main_path_levels(cuda, dtype):
+    """Batch 2, the main path's 8 heads of 32 and its three levels, fewer
+    queries."""
+    _check(*_inputs(32, dtype, B=2, H=8, Lq=512, shapes=MAIN_PATH_SHAPES),
+           MAIN_PATH_SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,points", [(2, 4), (3, 3)])
+@pytest.mark.parametrize("hd", [6, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_matches_plain_other_counts(cuda, levels, points, hd, dtype):
+    """Level and point counts other than the main path's 3 and 4 take the
+    kernel's generic loop."""
+    shapes = SHAPES[:levels]
+    _check(*_inputs(hd, dtype, P=points, shapes=shapes), shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [6, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_far_out_level_adds_exactly_zero(cuda, hd, dtype):
+    """Samples at +-1e6 and +-3e9 (never converted to int) add exactly +0:
+    the output equals, bit for bit, the kernel's output with that level's
+    samples inside it and their weights zeroed, and matches the plain
+    version with that level's weights zeroed."""
+    v, l, a = _inputs(hd, dtype, seed=1)
+    far = np.random.RandomState(2).choice([1e6, -1e6, 3e9, -3e9], size=l[:, :, :, 1].shape)
+    l_far = l.clone()
+    l_far[:, :, :, 1] = torch.from_numpy(far.astype(np.float32)).cuda()
+    a_zero = a.clone()
+    a_zero[:, :, :, 1] = 0
+    out = _check(v, l_far, a)
+    assert torch.equal(out, ms_deform_attn(v, SHAPES, l, a_zero))
+    ref = ms_deform_attn_torch(v, SHAPES, l_far, a_zero)
+    assert float((out.float() - ref.float()).abs().max()) <= _tolerance(ref)
+
+
+def _misaligned(t):
+    """The same values in a view that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 @pytest.mark.cuda
@@ -64,3 +124,15 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         ms_deform_attn(v, SHAPES, l, a.float())  # weights in the value's dtype
     with pytest.raises(ValueError):
         ms_deform_attn(v.transpose(0, 1).contiguous().transpose(0, 1), SHAPES, l, a)
+    for i in range(3):  # 16-byte chunks need 16-byte aligned inputs
+        args = [v, l, a]
+        args[i] = _misaligned(args[i])
+        assert args[i].is_contiguous() and args[i].data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ms_deform_attn(args[0], SHAPES, args[1], args[2])
+
+
+@pytest.mark.cuda
+def test_one_element_chunks_take_misaligned_inputs(cuda):
+    v, l, a = _inputs(6, torch.bfloat16)
+    _check(_misaligned(v), _misaligned(l), _misaligned(a))

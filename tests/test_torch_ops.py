@@ -19,7 +19,8 @@ from odise_tpu.ops.ms_deform_attn import _hybrid_impl, _reference_impl  # noqa: 
 from odise_tpu.ops.pallas.ms_deform_attn_kernel import _pallas_forward  # noqa: E402
 from odise_torch.models import helper  # noqa: E402
 from odise_torch.models.resize import resize  # noqa: E402
-from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_torch  # noqa: E402
+from odise_torch.ops.ms_deform_attn import (  # noqa: E402
+    launch_plan, ms_deform_attn, ms_deform_attn_torch)
 
 # one level above the JAX package's 1024-row matmul cutoff, two below
 SHAPES = [(40, 40), (6, 8), (3, 4)]
@@ -72,6 +73,43 @@ def test_ms_deform_attn_plain_matches_jax(impl):
     plain = ms_deform_attn_torch(torch.from_numpy(value), SHAPES,
                                  torch.from_numpy(loc), torch.from_numpy(att))
     assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("far", [2.0, 1e6])
+def test_ms_deform_attn_plain_far_out_level_matches_jax(far):
+    """One level's samples all at +-far (outside the level): the plain
+    version agrees with JAX ``_reference_impl`` to 1e-5 and equals, exactly,
+    its own run with that level's weights zeroed. The kernel's clamping of
+    such samples has to keep this."""
+    value, loc, att = _deform_inputs(seed=4)
+    signs = np.random.RandomState(5).choice([-1.0, 1.0], size=loc[:, :, :, 0].shape)
+    loc[:, :, :, 0] = (far * signs).astype(np.float32)
+    ref = np.asarray(_reference_impl(jnp.asarray(value), SHAPES, jnp.asarray(loc),
+                                     jnp.asarray(att)))
+    out = ms_deform_attn_torch(torch.from_numpy(value), SHAPES,
+                               torch.from_numpy(loc), torch.from_numpy(att))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    att[:, :, :, 0] = 0
+    zeroed = ms_deform_attn_torch(torch.from_numpy(value), SHAPES,
+                                  torch.from_numpy(loc), torch.from_numpy(att))
+    assert torch.equal(out, zeroed)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Lq, heads, head_dim, dtype) -> (chunk elements, chunk bytes,
+    # threads per head, warps)
+    ((1, 21504, 8, 32, torch.bfloat16), (8, 16, 4, 21504)),  # FULL main path
+    ((1, 21504, 8, 6, torch.bfloat16), (1, 2, 6, 32256)),    # 12 B heads
+    ((2, 50, 3, 40, torch.float32), (4, 16, 10, 94)),
+    ((1, 10, 2, 6, torch.float32), (1, 4, 6, 4)),            # 24 B heads
+], ids=["full_bf16", "hd6_bf16", "hd40_f32", "hd6_f32"])
+def test_launch_plan(case):
+    (B, Lq, H, hd, dtype), (elems, nbytes, per_head, warps) = case
+    plan = launch_plan(B, Lq, H, hd, dtype)
+    assert (plan.chunk_elems, plan.chunk_bytes, plan.threads_per_head,
+            plan.warps) == (elems, nbytes, per_head, warps)
+    assert plan.threads == B * Lq * H * per_head
+    assert plan.blocks * 128 >= plan.threads > (plan.blocks - 1) * 128
 
 
 def test_ms_deform_attn_rejects_bad_shapes():
