@@ -4,8 +4,9 @@
 
 Phases, each fatal on failure:
   1. print the card's name and power limit; build every CUDA source under
-     odise_torch/csrc (one nvcc each, started together) and print ptxas's
-     registers and spills for each kernel;
+     odise_torch/csrc (one nvcc each, started together), print ptxas's
+     report of registers and spills as nvcc gave it, and the warps an SM
+     holds of each kernel variant (CUDA occupancy calculator);
   2. hold the deformable-attention kernel against its plain PyTorch version
      at the main path's shapes, in float32 and bf16, on random,
      out-of-range and pixel-centre sampling locations;
@@ -16,11 +17,14 @@ Phases, each fatal on failure:
      grow by 6 per image, and the logit checksums must match the recorded
      ones;
   4. on the inputs the main path gave the first encoder layer: compare the
-     kernel with the plain version, check that it ran 16-byte chunks, and
-     time both with the L2 flushed and the kernel also back to back;
+     kernel with the plain version, and time both with the L2 flushed and
+     the kernel also back to back; time the kernel's generic variant on the
+     same inputs beside the one the main path runs;
   5. trace one more K=133 request with torch.profiler: the device kernels
      that take the most time, the deformable-attention kernel's in-place
-     time, and the device's idle share over the request;
+     time, and the device's idle share over the request; read from the
+     launched kernel's name that it ran 16-byte bf16 chunks in the variant
+     for 3 levels of 4 points;
   6. hold the TINY model on the card against the same model on the CPU.
 Then it prints the ``kernels`` JSON line and, last, the ``ok`` line.
 It needs a card and the repository around it, and exits non-zero without.
@@ -39,7 +43,6 @@ SHAPES = [(32, 32), (64, 64), (128, 128)]
 HEADS, HEAD_DIM, POINTS = 8, 32, 4
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores
-H100_REGS_PER_SM, H100_MAX_WARPS_PER_SM, H100_MAX_BLOCKS_PER_SM = 65536, 64, 32
 TIMING_ITERS = 100
 WARM_ITERS = 200
 # sum|mask_cls| + sum|mask_pred| per vocabulary size, recorded on an H100 with
@@ -47,6 +50,10 @@ WARM_ITERS = 200
 # other sum orders in a changed kernel)
 LOGIT_SUMS = {133: 7.809334e6, 20: 7.750097e6}
 KERNEL = "ms_deform_attn_fwd_kernel"
+# the template arguments in a launched kernel's name: element type, chunk
+# width in elements, levels and points compiled in (0: any)
+KERNEL_ARGS = re.compile(KERNEL + r"<(\w+), (\d+), (\d+), (\d+)>")
+ELEMENT_BYTES = {"__nv_bfloat16": 2, "float": 4}
 
 
 def log(msg):
@@ -61,45 +68,26 @@ def card_line():
 
 def build_kernels():
     from odise_torch.ops import _build
+    from odise_torch.ops.ms_deform_attn import launch_plan, resident_warps
 
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
     _build.build(names)
     log(f"built {names} in {time.perf_counter() - t0:.1f} s")
     for name in names:
-        for line in ptxas_report(_build.build_log(name).read_text()):
-            log(f"ptxas {name}: {line}")
-
-
-def ptxas_report(text, block_threads=128):
-    """One line per kernel from nvcc's -Xptxas=-v output: registers, spills,
-    and the warps an SM can hold at that register count (H100 limits)."""
-    lines, entry, spills = [], None, ""
-    for raw in text.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", raw)
-        if m:
-            entry = m.group(1)
-            t = re.search(r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)E", entry)
-            if t:
-                counts = ("levels and points any" if t.group(3) == "0" else
-                          f"{t.group(3)} levels of {t.group(4)} points")
-                entry = (f"<{'f32' if t.group(1) == 'f' else 'bf16'}, "
-                         f"chunk {t.group(2)}, {counts}>")
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", raw)
-        if m:
-            spills = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
-        m = re.search(r"Used (\d+) registers", raw)
-        if m and entry:
-            regs = int(m.group(1))
-            per_warp = -(-regs * 32 // 256) * 256  # allocated per warp in 256s
-            warps_per_block = block_threads // 32
-            blocks = min(H100_REGS_PER_SM // (per_warp * warps_per_block),
-                         H100_MAX_WARPS_PER_SM // warps_per_block,
-                         H100_MAX_BLOCKS_PER_SM)
-            lines.append(f"{entry}: {regs} registers, {spills}, "
-                         f"{blocks * warps_per_block} resident warps per SM")
-            entry, spills = None, ""
-    return lines
+        path = _build.build_log(name)
+        text = path.read_text() if path.exists() else f"no nvcc log at {path}"
+        for line in text.splitlines():
+            if "entry function" in line or "spill" in line or "Used" in line:
+                log(f"{name}: {line.strip()}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for head_dim in (HEAD_DIM, 6):  # 16-byte chunks, one-element chunks
+            for points in (POINTS, 3):  # the main path's counts, other counts
+                plan = launch_plan(1, 1, HEADS, head_dim, dtype, len(SHAPES), points)
+                log(f"ms_deform_attn <{str(dtype)[6:]}, chunk {plan.chunk_elems}, "
+                    f"{'3 levels of 4 points' if plan.specialised else 'any counts'}>: "
+                    f"{resident_warps(dtype, plan)} resident warps per SM "
+                    f"in blocks of {plan.block_threads}")
 
 
 def deform_inputs(kind, dtype, gen):
@@ -184,8 +172,8 @@ def time_warm(fn, iters=WARM_ITERS):
 def profile_request(model, request, image, train_labels):
     """One request under torch.profiler (CPU and CUDA activity). Prints the
     ten device kernels that take the most time and the device's idle share
-    over the request; returns the deformable-attention kernel's device times
-    (ms) in the request."""
+    over the request; returns the deformable-attention kernel's launches in
+    the request as (kernel name, device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -217,7 +205,8 @@ def profile_request(model, request, image, train_labels):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     for name, (n, tot) in top:
         log(f"  {tot / 1e3:9.3f} ms {100 * tot / total:5.1f}% {n:5d}x  {name[:110]}")
-    return [e.time_range.elapsed_us() / 1e3 for e in device if KERNEL in e.name]
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in device
+            if KERNEL in e.name]
 
 
 def deform_bound_ms(value, loc, attn):
@@ -319,7 +308,7 @@ def main():
               file=sys.stderr)
         return 1
     from odise_torch.model_zoo.factory import build_category_odise
-    from odise_torch.ops.ms_deform_attn import (launch_plan, ms_deform_attn,
+    from odise_torch.ops.ms_deform_attn import (launch, launch_plan, ms_deform_attn,
                                                 ms_deform_attn_torch)
 
     torch.backends.cudnn.allow_tf32 = False
@@ -388,26 +377,46 @@ def main():
         if [tuple(s) for s in shapes] != SHAPES or v.dtype != torch.bfloat16:
             raise AssertionError(f"unexpected main-path shapes {shapes} {v.dtype}")
         errs.append(check_kernel(v, loc, attn, "main-path inputs, bfloat16"))
-        plan = launch_plan(v.shape[0], loc.shape[1], HEADS, HEAD_DIM, v.dtype)
-        log(f"main-path launch plan: {plan}")
-        if plan.chunk_bytes != 16:
-            raise AssertionError("the main path did not take 16-byte chunks")
+        B, Lq, H, L, P = loc.shape[:5]
+        plan = launch_plan(B, Lq, H, v.shape[3], v.dtype, L, P)
+        log(f"main-path launch plan: {plan}, {plan.warps} warps")
         kernel_ms = time_cold(lambda: ms_deform_attn(v, SHAPES, loc, attn))
         warm_ms = time_warm(lambda: ms_deform_attn(v, SHAPES, loc, attn))
         plain_ms = time_cold(lambda: ms_deform_attn_torch(v, SHAPES, loc, attn))
+        generic = plan._replace(specialised=False)
+        same = torch.equal(launch(v, SHAPES, loc, attn, generic),
+                           ms_deform_attn(v, SHAPES, loc, attn))
+        generic_ms = time_cold(lambda: launch(v, SHAPES, loc, attn, generic))
+        generic_warm_ms = time_warm(lambda: launch(v, SHAPES, loc, attn, generic))
         bound_ms, bound_by = deform_bound_ms(v, loc, attn)
     log(f"deform attn on main-path inputs: kernel {kernel_ms:.4f} ms cold, "
         f"{warm_ms:.4f} ms warm, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by})")
+    log(f"generic variant on the same inputs: {generic_ms:.4f} ms cold, "
+        f"{generic_warm_ms:.4f} ms warm; output bitwise equal to the main "
+        f"path's variant: {same}")
+    if not same:
+        raise AssertionError("the generic variant's output differs from the "
+                             "main path's variant on the same inputs")
 
     # 5. one more warm K=133 request under the profiler
     in_place = profile_request(model, requests[0], image, train_labels)
-    if len(in_place) != 6:
+    names = sorted({name for name, _ in in_place})
+    log(f"deform attn launched in the request as {names}")
+    ran = [m.groups() for m in map(KERNEL_ARGS.search, names) if m]
+    if len(in_place) != 6 or len(names) != 1 or len(ran) != 1:
         raise AssertionError(f"the profiler saw {len(in_place)} {KERNEL} launches "
-                             "in one request; expected 6")
-    in_place_ms = sum(in_place) / len(in_place)
-    log(f"deform attn in place: {sum(in_place):.4f} ms over {len(in_place)} "
-        f"launches, {in_place_ms:.4f} ms per launch")
+                             f"under {len(names)} names in one request, expected 6 "
+                             "under one name with readable template arguments")
+    elem_type, elems, levels, points = ran[0]
+    vector_bytes = ELEMENT_BYTES[elem_type] * int(elems)
+    if (elem_type, vector_bytes, levels, points) != ("__nv_bfloat16", 16, "3", "4"):
+        raise AssertionError("the main path did not run 16-byte bf16 chunks in "
+                             "the variant for 3 levels of 4 points")
+    in_place_ms = sum(ms for _, ms in in_place) / len(in_place)
+    log(f"deform attn in place: {sum(ms for _, ms in in_place):.4f} ms over "
+        f"{len(in_place)} launches, {in_place_ms:.4f} ms per launch, "
+        f"{vector_bytes}-byte chunks")
     del model, records, captured
     torch.cuda.empty_cache()
 
@@ -435,7 +444,7 @@ def main():
         "replaces": "odise_tpu/ops/pallas/ms_deform_attn_kernel.py:157",
         "launches": launches, "max_abs_err": max(errs),
         "ms": kernel_ms, "warm_ms": warm_ms, "in_place_ms": in_place_ms,
-        "vector_bytes": plan.chunk_bytes, "plain_ms": plain_ms,
+        "vector_bytes": vector_bytes, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,14 +41,11 @@
 //    level (a template parameter, 4 on the main path) issue their 4P loads
 //    together before any multiply-add. With the main path's counts (3 levels
 //    of 4 points) known at compile time the level loop unrolls and the next
-//    level's locations load early; other counts take a generic loop.
+//    level's locations load early. Other counts take the generic variant,
+//    which issues one point's loads at a time; chip_smoke.py times both on
+//    the main path's inputs (PERF.md).
 //  - Registers are capped at 85 so that an SM holds 24 warps (6 blocks of
-//    128 threads); the main-path variant fits in 80 without spilling. On the
-//    main path's inputs the capped, unrolled kernel measured faster than the
-//    uncapped one with 256-thread blocks and a runtime level loop (PERF.md).
-// Measured so (PERF.md), it takes about as long with its inputs in L2 as on
-// the main path, where the layers before it have just written them: the
-// 0.53 GB of gathered corner rows from L1/L2, not device memory, bound it.
+//    128 threads); the main-path variant fits in 80 without spilling.
 //  - Locations (2P f32) and attention weights (P values) of a level are read
 //    with 16 B and 8 B vector loads where the chunk is 16 B; the wrapper then
 //    checks that all three inputs are 16 B aligned.
@@ -57,6 +54,17 @@
 // The sum runs over levels, points, then corners (y0,x0), (y0,x1), (y1,x0),
 // (y1,x1), each as fma(w, v, acc) in f32 with w = bilinear * attention, and
 // is written once in the value's type.
+//
+// What limits it now is a hypothesis, not a measurement: on the main path it
+// takes as long as with its inputs held in L2 by back-to-back calls, so
+// device memory does not limit it. Whether L1/L2 gather throughput, load
+// latency or instruction issue does was not measured (no memory-unit or
+// stall counters were read). For scale, 0.53 GB of corner rows in 0.065 ms
+// would be about 8 TB/s of L1/L2 traffic (arithmetic, not a reading).
+//
+// The launch (chunk width, variant, blocks and block size) is decided by the
+// wrapper's launch_plan() (odise_torch/ops/ms_deform_attn.py) and passed in;
+// the entry point launches exactly that or refuses it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,8 +73,9 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kBlockThreads = 128;  // odise_torch/ops/ms_deform_attn.py BLOCK_THREADS
-// At most 85 registers a thread, so that an SM holds 6 blocks (24 warps).
+// The most threads a block may have (the launch plan uses 128), and the blocks
+// of that size an SM must hold: at most 85 registers a thread, 24 warps.
+constexpr int kBlockThreads = 128;
 constexpr int kMinBlocksPerSM = 6;
 
 struct Levels {
@@ -301,40 +310,46 @@ ms_deform_attn_fwd_kernel(const T* __restrict__ value, const float* __restrict__
 }
 
 template <typename T, int VEC>
-void launch(const void* value, const void* loc, const void* attn, void* out,
-            int64_t n_threads, int Lv, int Lq, int H, int D, int P,
-            const Levels& lv, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((n_threads + kBlockThreads - 1) / kBlockThreads);
-  const T* v = static_cast<const T*>(value);
-  const float* l = static_cast<const float*>(loc);
-  const T* a = static_cast<const T*>(attn);
-  T* o = static_cast<T*>(out);
-  if (lv.n == 3 && P == 4)
-    ms_deform_attn_fwd_kernel<T, VEC, 3, 4><<<blocks, kBlockThreads, 0, s>>>(
-        v, l, a, o, n_threads, Lv, Lq, H, D, P, lv);
-  else
-    ms_deform_attn_fwd_kernel<T, VEC, 0, 0><<<blocks, kBlockThreads, 0, s>>>(
-        v, l, a, o, n_threads, Lv, Lq, H, D, P, lv);
+const void* variant(int specialised) {
+  return specialised ? (const void*)ms_deform_attn_fwd_kernel<T, VEC, 3, 4>
+                     : (const void*)ms_deform_attn_fwd_kernel<T, VEC, 0, 0>;
+}
+
+// The kernel for a dtype (0 float32, 1 bfloat16), a chunk width in elements
+// and a variant (1: 3 levels of 4 points at compile time, 0: any counts), or
+// null if there is none.
+const void* kernel_for(int dtype, int vec, int specialised) {
+  if (dtype == 0 && vec == 1) return variant<float, 1>(specialised);
+  if (dtype == 0 && vec == 4) return variant<float, 4>(specialised);
+  if (dtype == 1 && vec == 1) return variant<__nv_bfloat16, 1>(specialised);
+  if (dtype == 1 && vec == 8) return variant<__nv_bfloat16, 8>(specialised);
+  return nullptr;
 }
 
 }  // namespace
 
-// C entry point, loaded with ctypes. Pointers are device pointers except
-// `level_hws`, a host array of 3 * n_levels ints: (h, w, start row) per
-// level. `dtype` is 0 for float32 and 1 for bfloat16 (value, attention and
-// output share it; locations are always float32). `vec` is the chunk width
-// in elements that the wrapper's launch plan chose: 16 bytes' worth (then
-// value, loc and attn must be 16 B aligned) or 1. Returns the
-// cudaGetLastError() of the launch.
+// C entry points, loaded with ctypes. They return a cudaError_t.
+//
+// ms_deform_attn_forward launches the kernel on `stream` as the wrapper's
+// launch plan says: `vec` elements a chunk (16 bytes' worth, then value, loc
+// and attn must be 16 B aligned, or 1), the `specialised` variant (only for 3
+// levels of 4 points) or the generic one, `blocks` blocks of `block_threads`.
+// It refuses a plan that does not cover the output or that the kernel was not
+// compiled for. Pointers are device pointers except `level_hws`, a host array
+// of 3 * n_levels ints: (h, w, start row) per level. `dtype` is 0 for float32
+// and 1 for bfloat16 (value, attention and output share it; locations are
+// always float32).
 extern "C" int ms_deform_attn_forward(const void* value, const void* loc,
                                       const void* attn, void* out, int B,
                                       int Lv, int Lq, int H, int D,
                                       int n_levels, int P,
                                       const void* level_hws, int dtype, int vec,
-                                      void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || P < 1) return (int)cudaErrorInvalidValue;
-  const int elem = dtype == 0 ? 4 : 2;
-  if ((dtype != 0 && dtype != 1) || (vec != 1 && vec * elem != 16) || D % vec != 0)
+                                      int specialised, int blocks,
+                                      int block_threads, void* stream) {
+  const void* kernel = kernel_for(dtype, vec, specialised);
+  if (kernel == nullptr || n_levels < 1 || n_levels > kMaxLevels || P < 1 ||
+      (specialised && (n_levels != 3 || P != 4)) || D % vec != 0 ||
+      block_threads < 1 || block_threads > kBlockThreads)
     return (int)cudaErrorInvalidValue;
   Levels lv;
   lv.n = n_levels;
@@ -344,20 +359,23 @@ extern "C" int ms_deform_attn_forward(const void* value, const void* loc,
     lv.w[l] = hws[3 * l + 1];
     lv.start[l] = hws[3 * l + 2];
   }
-  const int64_t n_threads = (int64_t)B * Lq * H * (D / vec);
+  int64_t n_threads = (int64_t)B * Lq * H * (D / vec);
   if (n_threads == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks < 1 || (int64_t)blocks * block_threads < n_threads)
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {&value, &loc, &attn, &out, &n_threads, &Lv, &Lq, &H, &D, &P, &lv};
   cudaGetLastError();  // clear an earlier, unrelated error
-  if (dtype == 0) {
-    if (vec == 1)
-      launch<float, 1>(value, loc, attn, out, n_threads, Lv, Lq, H, D, P, lv, s);
-    else
-      launch<float, 4>(value, loc, attn, out, n_threads, Lv, Lq, H, D, P, lv, s);
-  } else {
-    if (vec == 1)
-      launch<__nv_bfloat16, 1>(value, loc, attn, out, n_threads, Lv, Lq, H, D, P, lv, s);
-    else
-      launch<__nv_bfloat16, 8>(value, loc, attn, out, n_threads, Lv, Lq, H, D, P, lv, s);
-  }
-  return (int)cudaGetLastError();
+  return (int)cudaLaunchKernel(kernel, dim3((unsigned)blocks), dim3((unsigned)block_threads),
+                               args, 0, static_cast<cudaStream_t>(stream));
+}
+
+// ms_deform_attn_occupancy writes to `blocks_per_sm` how many blocks of
+// `block_threads` threads of a variant an SM of the current device holds.
+extern "C" int ms_deform_attn_occupancy(int dtype, int vec, int specialised,
+                                        int block_threads, int* blocks_per_sm) {
+  const void* kernel = kernel_for(dtype, vec, specialised);
+  if (kernel == nullptr || block_threads < 1 || block_threads > kBlockThreads)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                            block_threads, 0);
 }

@@ -17,7 +17,8 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["launch_plan", "ms_deform_attn", "ms_deform_attn_torch"]
+__all__ = ["launch", "launch_plan", "ms_deform_attn", "ms_deform_attn_torch",
+           "resident_warps"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,44 +74,72 @@ def _check(value, spatial_shapes, sampling_locations, attention_weights):
         raise ValueError(f"inputs lie on different devices: {devices}")
 
 
-BLOCK_THREADS = 128  # kBlockThreads in the kernel's source
+BLOCK_THREADS = 128  # at most kBlockThreads in the kernel's source
 
 
 class LaunchPlan(NamedTuple):
+    """What the C entry point launches; it refuses a plan the kernel was not
+    compiled for."""
     chunk_elems: int       # value elements a thread reads per corner
     chunk_bytes: int
     threads_per_head: int
+    specialised: bool      # the variant compiled for 3 levels of 4 points
     threads: int
-    warps: int
+    block_threads: int
     blocks: int
+
+    @property
+    def warps(self) -> int:
+        return self.blocks * self.block_threads // 32
 
 
 def launch_plan(batch: int, len_q: int, n_heads: int, head_dim: int,
-                dtype: torch.dtype) -> LaunchPlan:
+                dtype: torch.dtype, n_levels: int, n_points: int) -> LaunchPlan:
     """How the kernel covers an output of [batch, len_q, n_heads, head_dim]:
     one thread per 16-byte chunk of a head's channels where head_dim fills
-    whole 16-byte chunks, else one thread per channel."""
+    whole 16-byte chunks, else one thread per channel; the variant with the
+    counts compiled in where they are the main path's 3 levels of 4 points."""
     elem = dtype.itemsize
     vec = 16 // elem if head_dim * elem % 16 == 0 else 1
     per_head = head_dim // vec
     threads = batch * len_q * n_heads * per_head
     return LaunchPlan(chunk_elems=vec, chunk_bytes=vec * elem,
-                      threads_per_head=per_head, threads=threads,
-                      warps=-(-threads // 32),
+                      threads_per_head=per_head,
+                      specialised=(n_levels, n_points) == (3, 4),
+                      threads=threads, block_threads=BLOCK_THREADS,
                       blocks=-(-threads // BLOCK_THREADS))
 
 
 @functools.lru_cache(maxsize=None)
-def _forward_fn():
-    """The kernel's C entry point, built and loaded once per process."""
-    fn = _build.load("ms_deform_attn").ms_deform_attn_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    """The kernel's C entry points, built and loaded once per process."""
+    lib = _build.load("ms_deform_attn")
+    lib.ms_deform_attn_forward.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    lib.ms_deform_attn_forward.restype = ctypes.c_int
+    lib.ms_deform_attn_occupancy.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.ms_deform_attn_occupancy.restype = ctypes.c_int
+    return lib
 
 
-def _launch(value, spatial_shapes, sampling_locations, attention_weights):
+def resident_warps(dtype: torch.dtype, plan: LaunchPlan) -> int:
+    """Warps of the plan's kernel variant that an SM of the current card
+    holds, from the CUDA runtime's occupancy calculator."""
+    blocks = ctypes.c_int(0)
+    err = _lib().ms_deform_attn_occupancy(
+        _DTYPE_CODE[dtype], plan.chunk_elems, int(plan.specialised),
+        plan.block_threads, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"ms_deform_attn occupancy query failed: CUDA error {err}")
+    return blocks.value * plan.block_threads // 32
+
+
+def launch(value, spatial_shapes, sampling_locations, attention_weights,
+           plan: LaunchPlan | None = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors that ``ms_deform_attn`` has checked,
+    as ``plan`` says (``launch_plan``'s by default), and count the launch."""
     if value.dtype not in _DTYPE_CODE:
         raise TypeError(f"value must be float32 or bfloat16, got {value.dtype}")
     if attention_weights.dtype != value.dtype:
@@ -128,7 +157,8 @@ def _launch(value, spatial_shapes, sampling_locations, attention_weights):
     _, Len_q, _, n_levels, n_points, _ = sampling_locations.shape
     if n_levels > 8:
         raise ValueError("the kernel takes at most 8 levels")
-    plan = launch_plan(B, Len_q, n_heads, hd, value.dtype)
+    if plan is None:
+        plan = launch_plan(B, Len_q, n_heads, hd, value.dtype, n_levels, n_points)
     if plan.chunk_bytes == 16:
         for name, t in inputs:
             if t.data_ptr() % 16:
@@ -142,14 +172,15 @@ def _launch(value, spatial_shapes, sampling_locations, attention_weights):
     hws_arr = (ctypes.c_int * len(hws))(*hws)
     out = torch.empty((B, Len_q, n_heads * hd), dtype=value.dtype,
                       device=value.device)
-    fn = _forward_fn()
+    fn = _lib().ms_deform_attn_forward
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(value.data_ptr(), sampling_locations.data_ptr(),
                  attention_weights.data_ptr(), out.data_ptr(), B, Len_v,
                  Len_q, n_heads, hd, n_levels, n_points,
                  ctypes.addressof(hws_arr), _DTYPE_CODE[value.dtype],
-                 plan.chunk_elems, stream)
+                 plan.chunk_elems, int(plan.specialised), plan.blocks,
+                 plan.block_threads, stream)
     if err != 0:
         raise RuntimeError(f"ms_deform_attn kernel launch failed: CUDA error "
                            f"{err}")
@@ -179,8 +210,8 @@ def ms_deform_attn(value: torch.Tensor,
     """
     _check(value, spatial_shapes, sampling_locations, attention_weights)
     if value.device.type == "cuda":
-        return _launch(value, spatial_shapes, sampling_locations,
-                       attention_weights)
+        return launch(value, spatial_shapes, sampling_locations,
+                      attention_weights)
     if value.device.type != "cpu":
         raise ValueError(f"unsupported device {value.device}")
     return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,

@@ -11,7 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_torch  # noqa: E402
+from odise_torch.ops.ms_deform_attn import (  # noqa: E402
+    launch, launch_plan, ms_deform_attn, ms_deform_attn_torch, resident_warps)
 
 SHAPES = [(40, 40), (6, 8), (3, 4)]
 MAIN_PATH_SHAPES = [(32, 32), (64, 64), (128, 128)]  # 1024-px image, coarsest first
@@ -136,3 +137,43 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 def test_one_element_chunks_take_misaligned_inputs(cuda):
     v, l, a = _inputs(6, torch.bfloat16)
     _check(_misaligned(v), _misaligned(l), _misaligned(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [6, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_generic_variant_equals_main_path_variant(cuda, hd, dtype):
+    """At the main path's 3 levels of 4 points the generic variant, run by
+    hand, gives the same bits as the variant with the counts compiled in."""
+    v, l, a = _inputs(hd, dtype, H=8, Lq=300, shapes=MAIN_PATH_SHAPES)
+    plan = launch_plan(*l.shape[:3], hd, dtype, *l.shape[3:5])
+    assert plan.specialised
+    out = _check(v, l, a, MAIN_PATH_SHAPES)
+    assert torch.equal(out, launch(v, MAIN_PATH_SHAPES, l, a, plan._replace(specialised=False)))
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_plan_it_cannot_run(cuda):
+    v, l, a = _inputs(32, torch.bfloat16)  # 3 levels of 4 points
+    plan = launch_plan(*l.shape[:3], 32, torch.bfloat16, *l.shape[3:5])
+    bad = [plan._replace(blocks=plan.blocks - 1),                      # short of the output
+           plan._replace(block_threads=256, blocks=-(-plan.threads // 256)),  # over the bound
+           plan._replace(chunk_elems=4)]                                # no such variant
+    shapes2 = SHAPES[:2]
+    v2, l2, a2 = _inputs(32, torch.bfloat16, shapes=shapes2)  # 2 levels
+    before = ms_deform_attn.launches
+    for p in bad:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            launch(v, SHAPES, l, a, p)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launch(v2, shapes2, l2, a2, plan)  # the 3-level, 4-point variant
+    assert ms_deform_attn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_resident_warps(cuda, dtype):
+    """The main-path variant is capped so that an SM holds at least 24 of
+    its warps."""
+    plan = launch_plan(1, 21504, 8, 32, dtype, 3, 4)
+    assert 24 <= resident_warps(dtype, plan) <= 64

@@ -96,20 +96,22 @@ def test_ms_deform_attn_plain_far_out_level_matches_jax(far):
 
 
 @pytest.mark.parametrize("case", [
-    # (B, Lq, heads, head_dim, dtype) -> (chunk elements, chunk bytes,
-    # threads per head, warps)
-    ((1, 21504, 8, 32, torch.bfloat16), (8, 16, 4, 21504)),  # FULL main path
-    ((1, 21504, 8, 6, torch.bfloat16), (1, 2, 6, 32256)),    # 12 B heads
-    ((2, 50, 3, 40, torch.float32), (4, 16, 10, 94)),
-    ((1, 10, 2, 6, torch.float32), (1, 4, 6, 4)),            # 24 B heads
-], ids=["full_bf16", "hd6_bf16", "hd40_f32", "hd6_f32"])
+    # (B, Lq, heads, head_dim, dtype, levels, points) -> (chunk elements,
+    # chunk bytes, threads per head, specialised, launched warps)
+    ((1, 21504, 8, 32, torch.bfloat16, 3, 4), (8, 16, 4, True, 21504)),  # FULL main path
+    ((1, 21504, 8, 6, torch.bfloat16, 3, 4), (1, 2, 6, True, 32256)),    # 12 B heads
+    ((2, 50, 3, 40, torch.float32, 3, 3), (4, 16, 10, False, 96)),
+    ((1, 10, 2, 6, torch.float32, 2, 4), (1, 4, 6, False, 4)),           # 24 B heads
+    ((1, 0, 8, 32, torch.bfloat16, 3, 4), (8, 16, 4, True, 0)),          # no queries
+], ids=["full_bf16", "hd6_bf16", "hd40_f32", "hd6_f32", "empty"])
 def test_launch_plan(case):
-    (B, Lq, H, hd, dtype), (elems, nbytes, per_head, warps) = case
-    plan = launch_plan(B, Lq, H, hd, dtype)
+    (B, Lq, H, hd, dtype, L, P), (elems, nbytes, per_head, specialised, warps) = case
+    plan = launch_plan(B, Lq, H, hd, dtype, L, P)
     assert (plan.chunk_elems, plan.chunk_bytes, plan.threads_per_head,
-            plan.warps) == (elems, nbytes, per_head, warps)
+            plan.specialised, plan.warps) == (elems, nbytes, per_head, specialised, warps)
     assert plan.threads == B * Lq * H * per_head
-    assert plan.blocks * 128 >= plan.threads > (plan.blocks - 1) * 128
+    bt = plan.block_threads
+    assert bt % 32 == 0 and plan.blocks * bt >= plan.threads > (plan.blocks - 1) * bt
 
 
 def test_ms_deform_attn_rejects_bad_shapes():
