@@ -8,8 +8,11 @@ Phases, each fatal on failure:
      report of registers and spills as nvcc gave it, and the warps an SM
      holds of each kernel variant (CUDA occupancy calculator);
   2. hold the deformable-attention kernel against its plain PyTorch version
-     at the main path's shapes, in float32 and bf16, on random,
-     out-of-range and pixel-centre sampling locations;
+     at the main path's shapes and at the level shapes of the widest and
+     the tallest shape bucket (1024x2560, 2560x1024: non-square, 53,760
+     queries), in float32 and bf16, on random, out-of-range and
+     pixel-centre sampling locations; print the launch plan at 53,760
+     queries;
   3. serve four 1024-px requests with CategoryODISE at FULL width in bf16
      (deterministic pattern weights, 133- and 20-label vocabularies):
      encode_vocab, forward_eval_trunk, forward_eval_head,
@@ -25,8 +28,24 @@ Phases, each fatal on failure:
      time, and the device's idle share over the request; read from the
      launched kernel's name that it ran 16-byte bf16 chunks in the variant
      for 3 levels of 4 points;
-  6. hold the TINY model on the card against the same model on the CPU.
-Then it prints the ``kernels`` JSON line and, last, the ``ok`` line.
+  6. hold the TINY model on the card against the same model on the CPU;
+  7. the evaluation path at any image size: six synthetic records (one
+     1024 px, five cut from a 640-px one) reach five shape buckets
+     (1024x1024, 1024x1408, 1408x1024, 1024x1728, 1024x2560); the FULL
+     CategoryODISE of phase 3 serves them through OpenPanopticInference and
+     evaluate_open_vocab with statistics on the card against COCO
+     panoptic's 133 prompt-engineered labels. Per image it checks 6 kernel
+     launches, the level shapes the kernel got, the output shapes for the
+     bucket, finite results, no host fallback and the output checksums
+     (``EVAL_SUMS``), and prints bucket, SD crops, request ms, PQ, mIoU and
+     AP, twice over (the first pass meets each bucket's shapes for the
+     first time); for two images it holds the statistics on the card
+     against the same statistics on the CPU; it times the kernel on the
+     widest bucket's inputs and traces one request there. Then a FULL
+     CaptionODISE serves the 1024-px pattern image (checksum
+     ``CAPTION_SUMS``) and the same six records.
+Each phase prints its time. Then it prints the ``kernels`` JSON line and,
+last, the ``ok`` line.
 It needs a card and the repository around it, and exits non-zero without.
 """
 
@@ -40,6 +59,9 @@ import torch
 
 # s5, s4, s3 of a 1024-px image, coarsest first as the pixel decoder orders them
 SHAPES = [(32, 32), (64, 64), (128, 128)]
+# the same levels in the widest and the tallest shape bucket
+WIDE = [(32, 80), (64, 160), (128, 320)]
+TALL = [(80, 32), (160, 64), (320, 128)]
 HEADS, HEAD_DIM, POINTS = 8, 32, 4
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12      # float32 outside the tensor cores
@@ -49,6 +71,12 @@ WARM_ITERS = 200
 # the pattern weights below; held to 1e-3 relative (bf16 through ~200 layers,
 # other sum orders in a changed kernel)
 LOGIT_SUMS = {133: 7.809334e6, 20: 7.750097e6}
+# the same checksum for each of phase 7's six records with FULL
+# CategoryODISE, and for CaptionODISE's K=133 pattern request
+EVAL_SUMS = [7.810762e6, 7.809446e6, 1.072929e7, 1.072937e7, 1.331647e7, 1.959822e7]
+CAPTION_SUMS = {133: 7.813043e6}
+# phase 7's records: (rows, cols) cut from the 640-px one, after the 1024-px one
+CUTS = [(640, 640), (480, 640), (640, 480), (384, 640), (256, 640)]
 KERNEL = "ms_deform_attn_fwd_kernel"
 # the template arguments in a launched kernel's name: element type, chunk
 # width in elements, levels and points compiled in (0: any)
@@ -90,24 +118,42 @@ def build_kernels():
                     f"in blocks of {plan.block_threads}")
 
 
-def deform_inputs(kind, dtype, gen):
-    """Main-path-shaped deformable-attention inputs on the card."""
-    Lq = sum(h * w for h, w in SHAPES)
-    L = len(SHAPES)
+def deform_inputs(kind, dtype, gen, shapes=SHAPES):
+    """Deformable-attention inputs on the card: 8 heads of 32 over every
+    query of the levels ``shapes``. Every location is one whose pixel
+    coordinate ``loc * w - 0.5`` float32 computes exactly, in the kernel and
+    in the plain version's ``grid_sample`` normalisation alike. On a
+    320-pixel level, float32 rounds an arbitrary pixel coordinate by up to
+    half an ulp of 320 (1.5e-5 pixel), and each side rounds it its own way:
+    enough to move an output by more than the 1e-5 the two are held to."""
+    Lq = sum(h * w for h, w in shapes)
+    L = len(shapes)
     value = torch.randn((1, Lq, HEADS, HEAD_DIM), generator=gen, device="cuda")
     shape = (1, Lq, HEADS, L, POINTS, 2)
-    if kind == "random":
+    if kind in ("random", "out_of_range"):
         loc = torch.rand(shape, generator=gen, device="cuda")
-    elif kind == "out_of_range":
-        loc = torch.rand(shape, generator=gen, device="cuda") * 2.0 - 0.5
-    else:  # pixel centres: x = loc * w - 0.5 is an integer, edges included
-        wh = torch.tensor([[w, h] for h, w in SHAPES], dtype=torch.float32,
-                          device="cuda")[None, None, None, :, None, :]
-        idx = torch.floor(torch.rand(shape, generator=gen, device="cuda") * wh)
-        loc = (idx + 0.5) / wh
+        if kind == "out_of_range":
+            loc = loc * 2.0 - 0.5
+        loc = torch.round(loc * 4096) / 4096  # on a 2**-12 grid
+    else:  # pixel centres: x = loc * w - 0.5 is an integer
+        loc = torch.empty(shape, device="cuda")
+        for lvl, level in enumerate(shapes):
+            for axis, n in enumerate(level[::-1]):  # x across the width
+                centres = exact_centres(n)
+                pick = torch.randint(len(centres), shape[:3] + (POINTS,),
+                                     generator=gen, device="cuda")
+                loc[:, :, :, lvl, :, axis] = (centres[pick] + 0.5) / n
     logits = torch.randn((1, Lq, HEADS, L * POINTS), generator=gen, device="cuda")
     attn = torch.softmax(logits, -1).reshape(1, Lq, HEADS, L, POINTS)
     return value.to(dtype), loc, attn.to(dtype)
+
+
+def exact_centres(n):
+    """The pixels k of an n-pixel axis whose centre (k + 0.5) / n float32
+    holds exactly: all of them where n is a power of two; where n has the
+    odd factor m (80 = 16 * 5), those with 2k + 1 a multiple of m."""
+    odd = n // (n & -n)
+    return torch.arange((odd - 1) // 2, n, odd, device="cuda", dtype=torch.float32)
 
 
 def tolerance(ref):
@@ -119,11 +165,11 @@ def tolerance(ref):
     return 2 * float(ref.abs().max()) * 2.0 ** -8
 
 
-def check_kernel(value, loc, attn, label):
+def check_kernel(value, loc, attn, label, shapes=SHAPES):
     from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_torch
 
-    out = ms_deform_attn(value, SHAPES, loc, attn)
-    ref = ms_deform_attn_torch(value, SHAPES, loc, attn)
+    out = ms_deform_attn(value, shapes, loc, attn)
+    ref = ms_deform_attn_torch(value, shapes, loc, attn)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     tol = tolerance(ref)
@@ -169,18 +215,18 @@ def time_warm(fn, iters=WARM_ITERS):
     return start.elapsed_time(end) / iters
 
 
-def profile_request(model, request, image, train_labels):
-    """One request under torch.profiler (CPU and CUDA activity). Prints the
-    ten device kernels that take the most time and the device's idle share
-    over the request; returns the deformable-attention kernel's launches in
-    the request as (kernel name, device ms)."""
+def profile_request(request_fn):
+    """One request, ``request_fn()``, under torch.profiler (CPU and CUDA
+    activity). Prints the ten device kernels that take the most time and the
+    device's idle share over the request; returns the deformable-attention
+    kernel's launches in the request as (kernel name, device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("request"):
-            serve(model, [request], image, train_labels)
+            request_fn()
     events = prof.events()
     window = [e.time_range for e in events
               if e.name == "request" and e.device_type == DeviceType.CPU]
@@ -209,7 +255,7 @@ def profile_request(model, request, image, train_labels):
             if KERNEL in e.name]
 
 
-def deform_bound_ms(value, loc, attn):
+def deform_bound_ms(value, loc, attn, shapes=SHAPES):
     """Least time for the card: each input read once and the output written
     once at the HBM rate, or the float32 multiply-adds over the corners
     that this data puts inside their level, whichever is larger."""
@@ -217,7 +263,7 @@ def deform_bound_ms(value, loc, attn):
     n_bytes = (value.numel() * elem + loc.numel() * 4 + attn.numel() * elem
                + value.numel() // value.shape[1] * loc.shape[1] * elem)
     corners = 0
-    for lvl, (h, w) in enumerate(SHAPES):
+    for lvl, (h, w) in enumerate(shapes):
         x = loc[:, :, :, lvl, :, 0] * w - 0.5
         y = loc[:, :, :, lvl, :, 1] * h - 0.5
         x0, y0 = torch.floor(x), torch.floor(y)
@@ -302,6 +348,292 @@ def serve(model, requests, image, train_labels):
     return records
 
 
+def eval_records():
+    """Phase 7's records: one 1024-px synthetic record, and five cut from a
+    640-px one (``CUTS``), with the synthetic classes (cat, dog, grass)
+    mapped onto COCO panoptic's."""
+    import numpy as np
+
+    from odise_torch.data.build import coco_panoptic_categories
+    from odise_torch.data.synthetic import SYNTH_LABELS, make_shapes_records
+
+    names = [c["name"] for c in coco_panoptic_categories()]
+    to_coco = np.asarray([names.index(l[0]) for l in SYNTH_LABELS], np.uint8)
+
+    def cut(rec, rows, cols):
+        out = dict(rec, image=rec["image"][:rows, :cols],
+                   pan_seg=rec["pan_seg"][:rows, :cols],
+                   sem_seg=to_coco[rec["sem_seg"][:rows, :cols]])
+        present = set(np.unique(out["pan_seg"]).tolist())
+        out["segments_info"] = [dict(s, category_id=int(to_coco[s["category_id"]]))
+                                for s in rec["segments_info"] if s["id"] in present]
+        return out
+
+    big = make_shapes_records(1, size=1024, seed=0)[0]
+    small = make_shapes_records(1, size=640, seed=1)[0]
+    return [cut(big, 1024, 1024)] + [cut(small, r, c) for r, c in CUTS]
+
+
+class Recorder:
+    """Wraps an OpenPanopticInference. Per call it keeps the padded shape,
+    the output shapes, their checksum and finiteness, the SD crops and the
+    level shapes the deformable attention got; the outputs themselves only
+    for the calls listed in ``keep``, and the first encoder layer's inputs
+    and the padded images of the first call whose levels are ``WIDE``."""
+
+    def __init__(self, infer, keep=()):
+        self.infer, self.model, self.keep = infer, infer.model, set(keep)
+        self.calls, self.kept, self.crops, self.levels = [], {}, [], []
+        self.wide_layer0 = self.wide_images = None
+        model = infer.model
+        self.layer0 = model.sem_seg_head.pixel_decoder.encoder_layer_0
+        self.hooks = [
+            model.backbone.feature_extractor.register_forward_pre_hook(
+                lambda mod, args: self.crops.append(int(args[0].shape[0]))),
+            self.layer0.register_forward_pre_hook(self._layer0)]
+
+    def _layer0(self, mod, args):
+        levels = [tuple(int(x) for x in s) for s in args[3]]
+        self.levels.append(levels)
+        if levels == WIDE and self.wide_layer0 is None:
+            self.wide_layer0 = args
+
+    def __call__(self, images):
+        mask_cls, mask_pred = self.infer(images)
+        i = len(self.calls)
+        self.calls.append(dict(
+            bucket=tuple(images.shape[1:3]), cls_shape=tuple(mask_cls.shape),
+            pred_shape=tuple(mask_pred.shape),
+            checksum=float(mask_cls.float().abs().sum() + mask_pred.float().abs().sum()),
+            finite=bool(torch.isfinite(mask_cls).all() and torch.isfinite(mask_pred).all())))
+        if i in self.keep:
+            self.kept[i] = (mask_cls, mask_pred)
+        if self.levels[-1] == WIDE and self.wide_images is None:
+            self.wide_images = images
+        return mask_cls, mask_pred
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def expected_bucket(rec):
+    from odise_torch.data.transforms import ResizeShortestEdge
+    from odise_torch.evaluation.buckets import compute_eval_buckets, pick_bucket
+
+    h, w = ResizeShortestEdge(1024, 2560).output_size(*rec["image"].shape[:2])
+    return pick_bucket(-(-h // 64) * 64, -(-w // 64) * 64, compute_eval_buckets())
+
+
+def evaluate_records(recorder, records, labels, thing, tag, want_sums):
+    """evaluate_open_vocab on each record alone, timed from the host with a
+    synchronize on either side; every check of phase 7 on each image.
+    Returns the kernel launches."""
+    import math
+
+    from odise_torch.evaluation.run import evaluate_open_vocab
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn
+
+    Q, K = recorder.model.num_queries, len(labels)
+    ms_deform_attn.launches = 0
+    for i, rec in enumerate(records):
+        before = ms_deform_attn.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = evaluate_open_vocab(recorder, [rec], labels=labels, thing_mask=thing)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        call, crops, levels = recorder.calls[-1], recorder.crops[-1], recorder.levels[-1]
+        bh, bw = call["bucket"]
+        log(f"{tag} image {i} ({rec['image'].shape[0]}x{rec['image'].shape[1]}): bucket "
+            f"{bh}x{bw}, {crops} SD crops, levels {levels}, {ms:.1f} ms (evaluate_open_vocab "
+            f"{r['s_per_img'] * 1e3:.1f} ms), PQ {r['PQ']:.4f} mIoU {r['mIoU']:.4f} "
+            f"AP {r['AP']:.4f}, checksum {call['checksum']:.6e}")
+        short = min(bh, bw)
+        faults = [
+            (ms_deform_attn.launches - before != 6, "kernel launches other than 6"),
+            (call["bucket"] != expected_bucket(rec), f"bucket, not {expected_bucket(rec)}"),
+            (call["cls_shape"] != (1, Q, K + 1) or call["pred_shape"] != (1, Q, bh, bw),
+             f"output shapes {call['cls_shape']} {call['pred_shape']}"),
+            (levels != [(bh // s, bw // s) for s in (32, 16, 8)], "level shapes"),
+            (crops != -(-(max(bh, bw) - short) // short) + 1, "SD crop count"),
+            (not call["finite"], "outputs not finite"),
+            (not all(math.isfinite(v) for v in r.values()), f"results not finite: {r}"),
+            (r.get("host_fallback_images") != 0 or r["images"] != 1, "host fallback")]
+        if want_sums is not None:
+            faults.append((not abs(call["checksum"] - want_sums[i]) <= 1e-3 * want_sums[i],
+                           f"checksum not within 1e-3 of the recorded {want_sums[i]:.6e}"))
+        for bad, what in faults:
+            if bad:
+                raise AssertionError(f"{tag} image {i}: {what}")
+    return ms_deform_attn.launches
+
+
+def pixel_maps(mask_cls, mask_pred, src_hw, orig_hw, grid, thing, model):
+    """The per-pixel maps behind the statistics: semantic labels, panoptic
+    ids and instance masks on the output grid."""
+    from odise_torch.evaluation.device_eval import _sem_labels, resize_chw
+    from odise_torch.models.inference import instance_inference, panoptic_inference
+
+    masks_r = resize_chw(mask_pred, src_hw, orig_hw, grid)
+    pan = panoptic_inference(mask_cls, masks_r, thing, model.object_mask_threshold,
+                             model.overlap_threshold, valid_hw=orig_hw)
+    inst = instance_inference(mask_cls, masks_r, thing, model.test_topk_per_image,
+                              valid_hw=orig_hw)
+    return {"semantic labels": _sem_labels(mask_cls, masks_r),
+            "panoptic ids": pan.panoptic_seg, "instance masks": inst.masks}
+
+
+def stats_card_vs_cpu(outputs, rec, labels, thing_np, model):
+    """DeviceEvalRunner on the card and on the CPU (the outputs copied to the
+    host) for one image's outputs and gt. Counts (integer, and the float
+    intersections and areas) must be equal and the instance scores within
+    1e-5 relative, save what pixels that a threshold flips explain (each
+    moves one count from one cell to another); a map's flipped pixels may be
+    at most 1e-4 of the grid's (of the grid's times top-k for the instance
+    masks)."""
+    import numpy as np
+
+    from odise_torch.data.transforms import ResizeShortestEdge
+    from odise_torch.evaluation.buckets import compute_eval_buckets
+    from odise_torch.evaluation.device_eval import DeviceEvalRunner, pick_grid
+    from odise_torch.evaluation.run import prep_record
+
+    p = prep_record(rec, ResizeShortestEdge(1024, 2560), compute_eval_buckets(), thing_np)
+    src, orig = (p["h"], p["w"]), (p["oh"], p["ow"])
+    grid = pick_grid(*orig)
+    gts = dict(sem_gt=p["sem_gt"], pan_gt_ids=p["gt_ids"],
+               pan_seg_ids=np.asarray([s["id"] for s in p["gt_segments"]], np.uint32),
+               inst_gt_masks=p["inst_gt_masks"])
+    got = []
+    for dev in (outputs[0].device, torch.device("cpu")):
+        mask_cls, mask_pred = (o[0].to(dev) for o in outputs)
+        runner = DeviceEvalRunner(
+            num_classes=len(labels), thing_mask=thing_np,
+            object_mask_threshold=model.object_mask_threshold,
+            overlap_threshold=model.overlap_threshold, topk=model.test_topk_per_image)
+        t0 = time.perf_counter()
+        stats = runner.process(mask_cls, mask_pred, src, orig, **gts)
+        stats["confusion"] = runner.flush_confusion()
+        secs = time.perf_counter() - t0
+        maps = pixel_maps(mask_cls, mask_pred, src, orig, grid,
+                          torch.from_numpy(thing_np), model)
+        got.append((stats, {k: v.cpu() for k, v in maps.items()}))
+        log(f"  statistics on the {dev}: {secs:.2f} s")
+    (card, card_maps), (cpu, cpu_maps) = got
+    n = grid[0] * grid[1]
+    flips = {k: int((card_maps[k] != cpu_maps[k]).sum()) for k in card_maps}
+    log(f"  grid {grid[0]}x{grid[1]}, original {orig[0]}x{orig[1]}: pixels that differ "
+        f"between card and CPU: {flips} (limit {1e-4 * n:.0f} per map)")
+    if any(f > 1e-4 * n * (model.test_topk_per_image if k == "instance masks" else 1)
+           for k, f in flips.items()):
+        raise AssertionError("the card and the CPU differ on too many pixels")
+    # each flipped pixel moves one count from one cell to another
+    slack = 2 * sum(flips.values())
+    for key, want in cpu.items():
+        have, want = np.asarray(card[key], np.float64), np.asarray(want, np.float64)
+        if have.shape != want.shape:
+            raise AssertionError(f"statistic {key}: shape {have.shape} on the card, "
+                                 f"{want.shape} on the CPU")
+        if key == "inst_scores":
+            err = float(np.abs(have - want).max(initial=0)
+                        / max(np.abs(want).max(initial=0), 1e-30))
+            bad, what = err > 1e-5, "max relative difference"
+        else:
+            err = float(np.abs(have - want).sum())
+            bad = err > (0 if key == "inst_classes" else slack)
+            what = "sum of |differences|"
+        log(f"  {key}: card vs CPU {what} {err:.3e}")
+        if bad:
+            raise AssertionError(f"statistic {key} on the card disagrees with the CPU")
+
+
+def widest_bucket_kernel(recorder):
+    """The kernel on the inputs the 1024x2560 bucket gave the first encoder
+    layer: held against the plain version, timed cold and warm, its bound,
+    and its in-place time in one more traced request on that bucket."""
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_torch
+
+    src, pos, ref_points, shapes = recorder.wide_layer0
+    with torch.inference_mode():
+        v, loc, attn = recorder.layer0.self_attn.sampling_inputs(src + pos, ref_points,
+                                                                 src, shapes)
+        err = check_kernel(v, loc, attn, "1024x2560 bucket inputs, bfloat16", WIDE)
+        cold = time_cold(lambda: ms_deform_attn(v, WIDE, loc, attn))
+        warm = time_warm(lambda: ms_deform_attn(v, WIDE, loc, attn))
+        plain = time_cold(lambda: ms_deform_attn_torch(v, WIDE, loc, attn))
+        bound, bound_by = deform_bound_ms(v, loc, attn, WIDE)
+    in_place = profile_request(lambda: recorder.infer(recorder.wide_images))
+    if len(in_place) != 6:
+        raise AssertionError(f"{len(in_place)} {KERNEL} launches in one request")
+    in_place_ms = sum(ms for _, ms in in_place) / len(in_place)
+    log(f"deform attn at the 1024x2560 bucket ({loc.shape[1]} queries): kernel "
+        f"{cold:.4f} ms cold, {warm:.4f} ms warm, {in_place_ms:.4f} ms in place, plain "
+        f"{plain:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+    return dict(bucket=[1024, 2560], shapes=WIDE, queries=int(loc.shape[1]),
+                max_abs_err=err, ms=cold, warm_ms=warm, in_place_ms=in_place_ms,
+                plain_ms=plain, bound_ms=bound, bound_by=bound_by)
+
+
+def eval_category(model, records, labels, thing):
+    """Phase 7 with the FULL CategoryODISE of phase 3. Returns the kernel's
+    numbers at the widest bucket and the evaluation's kernel launches."""
+    from odise_torch.models.wrapper import OpenPanopticInference, build_open_vocabulary
+
+    torch.cuda.reset_peak_memory_stats()
+    vocab = build_open_vocabulary(model, labels, thing_mask=thing)
+    recorder = Recorder(OpenPanopticInference(model, vocab), keep=(0, 5))
+    # the first pass is the first use of each bucket's shapes, the second warm
+    launches = sum(evaluate_records(recorder, records, labels, thing,
+                                    f"CategoryODISE pass {n}", EVAL_SUMS) for n in (1, 2))
+    log(f"CategoryODISE: {launches} kernel launches over {2 * len(records)} images, "
+        f"peak memory allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log("checksums: EVAL_SUMS = [" + ", ".join(
+        f"{c['checksum']:.6e}" for c in recorder.calls[:len(records)]) + "]")
+    for i in sorted(recorder.kept):
+        log(f"statistics on the card vs the CPU, image {i}:")
+        stats_card_vs_cpu(recorder.kept[i], records[i], labels, thing, model)
+    largest = widest_bucket_kernel(recorder)
+    recorder.remove()
+    return largest, launches
+
+
+def eval_caption(records, labels, thing, image):
+    """Phase 7 with a FULL CaptionODISE (pattern weights, bf16): the 1024-px
+    pattern request with a 133-label pattern vocabulary, then the records.
+    Returns the evaluation's kernel launches."""
+    from odise_torch.model_zoo.factory import build_caption_odise
+    from odise_torch.models.wrapper import OpenPanopticInference, build_open_vocabulary
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn
+
+    t0 = time.perf_counter()
+    model = build_caption_odise("full", device="cuda", dtype=torch.bfloat16)
+    n_params = pattern_fill_(model)
+    torch.cuda.synchronize()
+    log(f"FULL CaptionODISE: {n_params / 1e9:.3f} B parameters, built and filled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ms_deform_attn.launches = 0
+    with torch.inference_mode():
+        r = serve(model, [vocabulary(80, 53, "category")], image, model.train_labels)[0]
+    log(f"CaptionODISE K=133 pattern request: {r['ms']:.1f} ms, logit_sum "
+        f"{r['logit_sum']:.6e}, sem_sum {r['sem_sum']:.6e}, segments {r['segments']}; "
+        f"checksum: CAPTION_SUMS = {{133: {r['logit_sum']:.6e}}}")
+    if ms_deform_attn.launches != 6:
+        raise AssertionError(f"{ms_deform_attn.launches} kernel launches for one image")
+    if CAPTION_SUMS is not None and not (
+            abs(r["logit_sum"] - CAPTION_SUMS[133]) <= 1e-3 * CAPTION_SUMS[133]):
+        raise AssertionError(f"CaptionODISE logit_sum {r['logit_sum']:.6e} is not within "
+                             f"1e-3 of the recorded {CAPTION_SUMS[133]:.6e}")
+    vocab = build_open_vocabulary(model, labels, thing_mask=thing)
+    recorder = Recorder(OpenPanopticInference(model, vocab))
+    launches = evaluate_records(recorder, records, labels, thing, "CaptionODISE", None)
+    recorder.remove()
+    log(f"CaptionODISE: {launches} kernel launches over {len(records)} images, peak "
+        f"memory allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA card: torch.cuda.is_available() is false",
@@ -315,17 +647,29 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    clock = [time.perf_counter()]
+
+    def phase_done(n):
+        now = time.perf_counter()
+        log(f"phase {n} took {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # 1. build
     build_kernels()
+    phase_done(1)
 
-    # 2. kernel vs plain at the main-path shapes
+    # 2. kernel vs plain at the main-path shapes and the extreme buckets' levels
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for kind in ("random", "out_of_range", "pixel_centres"):
-            errs.append(check_kernel(*deform_inputs(kind, dtype, gen),
-                                     f"{kind}, {str(dtype)[6:]}"))
+    for shapes in (SHAPES, WIDE, TALL):
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in ("random", "out_of_range", "pixel_centres"):
+                errs.append(check_kernel(*deform_inputs(kind, dtype, gen, shapes),
+                                         f"{shapes}, {kind}, {str(dtype)[6:]}", shapes))
+    Lq = sum(h * w for h, w in WIDE)
+    plan = launch_plan(1, Lq, HEADS, HEAD_DIM, torch.bfloat16, len(WIDE), POINTS)
+    log(f"launch plan at {Lq} queries (1024x2560 bucket, bf16): {plan}, {plan.warps} warps")
+    phase_done(2)
 
     # 3. the main path: FULL width, bf16, four 1024-px requests
     train_labels, thing133 = vocabulary(80, 53, "category")
@@ -368,6 +712,8 @@ def main():
         if not abs(r["logit_sum"] - want) <= 1e-3 * want:
             raise AssertionError(f"K={r['K']} logit_sum {r['logit_sum']:.6e} is not "
                                  f"within 1e-3 of the recorded {want:.6e}")
+    del records
+    phase_done(3)
 
     # 4. the kernel on the main path's own inputs (first encoder layer)
     src, pos, ref_points, shapes = captured[0]
@@ -398,9 +744,10 @@ def main():
     if not same:
         raise AssertionError("the generic variant's output differs from the "
                              "main path's variant on the same inputs")
+    phase_done(4)
 
     # 5. one more warm K=133 request under the profiler
-    in_place = profile_request(model, requests[0], image, train_labels)
+    in_place = profile_request(lambda: serve(model, [requests[0]], image, train_labels))
     names = sorted({name for name, _ in in_place})
     log(f"deform attn launched in the request as {names}")
     ran = [m.groups() for m in map(KERNEL_ARGS.search, names) if m]
@@ -417,8 +764,8 @@ def main():
     log(f"deform attn in place: {sum(ms for _, ms in in_place):.4f} ms over "
         f"{len(in_place)} launches, {in_place_ms:.4f} ms per launch, "
         f"{vector_bytes}-byte chunks")
-    del model, records, captured
-    torch.cuda.empty_cache()
+    del captured
+    phase_done(5)
 
     # 6. small-input reference: TINY on the card (kernel) vs on the CPU (plain)
     tiny_labels, tiny_thing = vocabulary(2, 1, "tiny")
@@ -436,16 +783,33 @@ def main():
         log(f"TINY card vs CPU {name}: max_abs_err {err:.3e} (tolerance 1e-3)")
         if not err <= 1e-3:  # float32 through ~100 layers, other sum orders
             raise AssertionError(f"TINY {name} on the card disagrees with the CPU")
+    del cpu_model, gpu_model
+    phase_done(6)
+
+    # 7. the evaluation path at any image size, both FULL models
+    from odise_torch.data.build import coco_panoptic_thing_mask, get_openseg_labels
+
+    records = eval_records()
+    coco = tuple(tuple(l) for l in get_openseg_labels("coco_panoptic", True))
+    coco_thing = coco_panoptic_thing_mask()
+    largest, launches_eval = eval_category(model, records, coco, coco_thing)
+    del model
+    torch.cuda.empty_cache()
+    launches_eval += eval_caption(records, coco, coco_thing, image)
+    phase_done(7)
 
     log(card_line())
     print(json.dumps({"kernels": [{
         "name": "ms_deform_attn", "route": "cuda",
         "source": "odise_torch/csrc/ms_deform_attn.cu",
         "replaces": "odise_tpu/ops/pallas/ms_deform_attn_kernel.py:157",
-        "launches": launches, "max_abs_err": max(errs),
+        "launches": launches, "max_abs_err": max(errs + [largest["max_abs_err"]]),
         "ms": kernel_ms, "warm_ms": warm_ms, "in_place_ms": in_place_ms,
         "vector_bytes": vector_bytes, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launches_eval": launches_eval,
+        "bucket_shapes_checked": [SHAPES, WIDE, TALL],
+        "largest_bucket": largest}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""Assemble CategoryODISE at the JAX package's named scales (counterpart of
-``odise_tpu/model_zoo/factory.py``): "full" is the shipped configuration,
-"tiny" a structurally identical miniature for tests."""
+"""Assemble CategoryODISE and CaptionODISE at the JAX package's named scales
+(counterpart of ``odise_tpu/model_zoo/factory.py``): "full" is the shipped
+configuration, "tiny" a structurally identical miniature for tests."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..data.build import get_openseg_labels
 from ..models.backbone.feature_extractor import (
     FeatureExtractorBackbone,
     LdmImplicitCaptionerExtractor,
@@ -20,7 +21,13 @@ from ..models.decoder.transformer_decoder import (
     PooledMaskEmbed,
     PseudoClassEmbed,
 )
-from ..models.odise import CategoryEmbed, CategoryODISE, PoolingCLIPHead
+from ..models.odise import (
+    CaptionODISE,
+    CategoryEmbed,
+    CategoryODISE,
+    PoolingCLIPHead,
+    WordEmbed,
+)
 
 TINY = dict(
     hidden=32, queries=10, dec_layers=3, enc_layers=2, nheads=4, ffn=64,
@@ -44,6 +51,8 @@ FULL = dict(
 
 TINY_TRAIN_LABELS = (("thing a",), ("thing b",), ("stuff c",))
 
+Labels = Tuple[Tuple[str, ...], ...]
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA; CUDA without a card is an error, not the CPU."""
@@ -54,8 +63,57 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def _parts(scale: str, train_labels: Optional[Labels], with_clip_head: bool,
+           backbone_in_size: Optional[tuple], num_classes: Optional[int],
+           dtype: torch.dtype):
+    """The modules both models share, built on the current default device.
+    ``num_classes`` None means one class per training label."""
+    if scale not in ("tiny", "full"):
+        raise ValueError(f"unknown scale {scale!r}")
+    cfg = dict(TINY if scale == "tiny" else FULL)
+    if backbone_in_size is not None:
+        cfg["backbone_in_size"] = tuple(backbone_in_size)
+    if train_labels is None:
+        train_labels = (TINY_TRAIN_LABELS if scale == "tiny" else tuple(
+            tuple(l) for l in get_openseg_labels("coco_panoptic", True)))
+    if num_classes is None:
+        num_classes = len(train_labels)
+    hidden = cfg["hidden"]
+    captioner = LdmImplicitCaptionerExtractor(
+        learnable_time_embed=True, model_channels=cfg["model_channels"],
+        vae_ch=cfg["vae_ch"], context_dim=cfg["context_dim"],
+        sd_text_layers=cfg["sd_text_layers"],
+        clip_vit_cfg=tuple(cfg["clip_vit_cfg"]), dtype=dtype)
+    backbone = FeatureExtractorBackbone(
+        captioner, out_features=("s2", "s3", "s4", "s5"),
+        backbone_in_size=tuple(cfg["backbone_in_size"]),
+        projection_dim=cfg["projection_dim"], dtype=dtype)
+    pixel_decoder = MSDeformAttnPixelDecoder(
+        backbone.output_shape(), conv_dim=hidden, mask_dim=hidden,
+        transformer_nheads=cfg["nheads"],
+        transformer_dim_feedforward=max(cfg["ffn"] // 2, 64),
+        transformer_enc_layers=cfg["enc_layers"], dtype=dtype)
+    predictor = ODISEMultiScaleMaskedTransformerDecoder(
+        hidden_dim=hidden, num_queries=cfg["queries"], nheads=cfg["nheads"],
+        dim_feedforward=cfg["ffn"], dec_layers=cfg["dec_layers"],
+        mask_dim=hidden, num_classes=num_classes, in_channels=hidden,
+        class_embed=PseudoClassEmbed(num_classes),
+        post_mask_embed=PooledMaskEmbed(hidden, hidden, hidden, dtype=dtype),
+        dtype=dtype)
+    te = cfg["text_encoder"]
+    return dict(
+        backbone=backbone,
+        sem_seg_head=MaskFormerHead(pixel_decoder, predictor),
+        text_encoder=TextTransformer(width=te["width"], layers=te["layers"],
+                                     heads=te["heads"],
+                                     embed_dim=te["embed_dim"], dtype=dtype),
+        clip_head=(PoolingCLIPHead(dtype=dtype, **cfg["pooling_clip"])
+                   if with_clip_head else None),
+        train_labels=train_labels, num_queries=cfg["queries"]), cfg
+
+
 def build_category_odise(scale: str = "full", *,
-                         train_labels: Optional[Tuple[Tuple[str, ...], ...]] = None,
+                         train_labels: Optional[Labels] = None,
                          with_clip_head: bool = True,
                          backbone_in_size: Optional[tuple] = None,
                          device=None, dtype: torch.dtype = torch.float32
@@ -63,53 +121,35 @@ def build_category_odise(scale: str = "full", *,
     """Build the eval model on ``device`` (default CUDA) with matmuls and
     convolutions in ``dtype``; norms and raw parameters stay float32.
 
-    "tiny" defaults to three placeholder labels; "full" needs the caller's
-    ``train_labels`` (no label file is read).
+    ``train_labels`` defaults to three placeholder labels at "tiny" and to
+    COCO panoptic's prompt-engineered labels at "full", as in the JAX
+    package.
     """
-    if scale not in ("tiny", "full"):
-        raise ValueError(f"unknown scale {scale!r}")
-    cfg = dict(TINY if scale == "tiny" else FULL)
-    if backbone_in_size is not None:
-        cfg["backbone_in_size"] = tuple(backbone_in_size)
-    if train_labels is None:
-        if scale != "tiny":
-            raise ValueError("the full model needs train_labels")
-        train_labels = TINY_TRAIN_LABELS
     device = resolve_device(device)
-    num_classes = len(train_labels)
-    hidden = cfg["hidden"]
     with torch.device(device):
-        captioner = LdmImplicitCaptionerExtractor(
-            learnable_time_embed=True, model_channels=cfg["model_channels"],
-            vae_ch=cfg["vae_ch"], context_dim=cfg["context_dim"],
-            sd_text_layers=cfg["sd_text_layers"],
-            clip_vit_cfg=tuple(cfg["clip_vit_cfg"]), dtype=dtype)
-        backbone = FeatureExtractorBackbone(
-            captioner, out_features=("s2", "s3", "s4", "s5"),
-            backbone_in_size=tuple(cfg["backbone_in_size"]),
-            projection_dim=cfg["projection_dim"], dtype=dtype)
-        pixel_decoder = MSDeformAttnPixelDecoder(
-            backbone.output_shape(), conv_dim=hidden, mask_dim=hidden,
-            transformer_nheads=cfg["nheads"],
-            transformer_dim_feedforward=max(cfg["ffn"] // 2, 64),
-            transformer_enc_layers=cfg["enc_layers"], dtype=dtype)
-        predictor = ODISEMultiScaleMaskedTransformerDecoder(
-            hidden_dim=hidden, num_queries=cfg["queries"], nheads=cfg["nheads"],
-            dim_feedforward=cfg["ffn"], dec_layers=cfg["dec_layers"],
-            mask_dim=hidden, num_classes=num_classes, in_channels=hidden,
-            class_embed=PseudoClassEmbed(num_classes),
-            post_mask_embed=PooledMaskEmbed(hidden, hidden, hidden, dtype=dtype),
-            dtype=dtype)
-        te = cfg["text_encoder"]
+        parts, cfg = _parts(scale, train_labels, with_clip_head,
+                            backbone_in_size, None, dtype)
         model = CategoryODISE(
-            backbone=backbone,
-            sem_seg_head=MaskFormerHead(pixel_decoder, predictor),
-            category_head=CategoryEmbed(hidden, cfg["clip_dim"], dtype=dtype),
-            text_encoder=TextTransformer(width=te["width"], layers=te["layers"],
-                                         heads=te["heads"],
-                                         embed_dim=te["embed_dim"], dtype=dtype),
-            clip_head=(PoolingCLIPHead(dtype=dtype, **cfg["pooling_clip"])
-                       if with_clip_head else None),
-            train_labels=train_labels, num_queries=cfg["queries"])
+            category_head=CategoryEmbed(cfg["hidden"], cfg["clip_dim"], dtype=dtype),
+            **parts)
     # buffers loaded from package data (the shared noise) start on the CPU
+    return model.to(device).eval()
+
+
+def build_caption_odise(scale: str = "full", *,
+                        train_labels: Optional[Labels] = None,
+                        with_clip_head: bool = True,
+                        backbone_in_size: Optional[tuple] = None,
+                        device=None, dtype: torch.dtype = torch.float32
+                        ) -> CaptionODISE:
+    """Build the caption-supervised eval model: one (fg) class in the mask
+    decoder and a ``WordEmbed`` projection of the vocabulary. Defaults as
+    ``build_category_odise``."""
+    device = resolve_device(device)
+    with torch.device(device):
+        parts, cfg = _parts(scale, train_labels, with_clip_head,
+                            backbone_in_size, 1, dtype)
+        model = CaptionODISE(
+            word_head=WordEmbed(cfg["hidden"], cfg["clip_dim"], dtype=dtype),
+            **parts)
     return model.to(device).eval()

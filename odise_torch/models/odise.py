@@ -1,9 +1,10 @@
-"""CategoryODISE eval path (counterpart of ``odise_tpu/models/odise.py``).
+"""CategoryODISE and CaptionODISE eval paths (counterpart of
+``odise_tpu/models/odise.py``).
 
 Public layouts follow the JAX package: images [B, H, W, 3] in [0, 1];
 ``forward_eval_trunk`` returns mask_pred [B, Q, H, W], mask_embed,
-logit_scale and clip_mask_embed; ``forward_eval_head`` returns mask_cls
-[B, Q, K+1].
+logit_scale and clip_mask_embed (CaptionODISE also the binary
+pred_logits); ``forward_eval_head`` returns mask_cls [B, Q, K+1].
 """
 
 from __future__ import annotations
@@ -48,6 +49,19 @@ class CategoryEmbed(nn.Module):
     def forward(self, text_embed_raw):
         return {"text_embed": self.text_proj(text_embed_raw),
                 "null_embed": self.text_proj(self.null_embed)}
+
+
+class WordEmbed(nn.Module):
+    """Caption-word (and, at eval, vocabulary) projection of raw CLIP text
+    embeds."""
+
+    def __init__(self, projection_dim: int, clip_dim: int = 768,
+                 dtype=torch.float32):
+        super().__init__()
+        self.word_proj = Dense(clip_dim, projection_dim, dtype=dtype)
+
+    def forward(self, word_embed_raw):
+        return {"word_embed": self.word_proj(word_embed_raw)}
 
 
 class PoolingCLIPHead(nn.Module):
@@ -107,30 +121,34 @@ def category_overlapping_mask(train_labels, test_labels) -> np.ndarray:
                       np.int64)
 
 
-class CategoryODISE(nn.Module):
-    """Label-supervised ODISE, eval path: ``encode_vocab``,
-    ``forward_eval_trunk``, ``forward_eval_head`` and ``forward_eval``."""
+class _EvalODISE(nn.Module):
+    """What both eval models share: the frozen text tower, the trunk and
+    ``forward_eval``. Submodules register in the JAX models' field order
+    (backbone, sem_seg_head, the vocabulary head, clip_head, text_encoder)."""
 
     def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
-                 category_head: CategoryEmbed, text_encoder: TextTransformer,
-                 clip_head: Optional[PoolingCLIPHead] = None,
-                 train_labels: Labels = (), num_queries: int = 100):
+                 head_name: str, head: nn.Module, text_encoder: TextTransformer,
+                 clip_head: Optional[PoolingCLIPHead], train_labels: Labels,
+                 num_queries: int):
         super().__init__()
         self.backbone = backbone
         self.sem_seg_head = sem_seg_head
-        self.category_head = category_head
+        self.add_module(head_name, head)
         self.clip_head = clip_head
         self.text_encoder = text_encoder
         self.train_labels = tuple(train_labels)
         self.num_queries = num_queries
+        # fusion settings the eval loop reads (the JAX models' defaults)
+        self.object_mask_threshold = 0.0
+        self.overlap_threshold = 0.8
+        self.test_topk_per_image = 100
 
     def encode_vocab(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [N, 77] -> pooled projected CLIP text embeds [N, D]."""
         return self.text_encoder(tokens)[0]
 
-    def forward_eval_trunk(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Vocabulary-independent part: SD backbone, mask decoder, CLIP mask
-        embeds and the mask upsample. images [B, H, W, 3] in [0, 1]."""
+    def _trunk(self, images: torch.Tensor):
+        """(trunk dict, the mask decoder's outputs) for images [B, H, W, 3]."""
         x = images.permute(0, 3, 1, 2)
         outputs = self.sem_seg_head(self.backbone(x))
         trunk = {"mask_embed": outputs["mask_embed"],
@@ -140,7 +158,34 @@ class CategoryODISE(nn.Module):
             trunk["clip_mask_embed"] = self.clip_head.get_mask_embed(x, mask_pred)
         trunk["mask_pred"] = resize(mask_pred.float(), images.shape[1:3],
                                     "bilinear")
-        return trunk
+        return trunk, outputs
+
+    def forward_eval(self, images, text_embed_raw, labels: Labels,
+                     clip_text_embed=None, clip_labels=None,
+                     category_overlap=None):
+        """-> (mask_cls [B, Q, K+1], mask_pred [B, Q, H, W])."""
+        trunk = self.forward_eval_trunk(images)
+        mask_cls = self.forward_eval_head(trunk, text_embed_raw, labels,
+                                          clip_text_embed, clip_labels,
+                                          category_overlap)
+        return mask_cls, trunk["mask_pred"]
+
+
+class CategoryODISE(_EvalODISE):
+    """Label-supervised ODISE, eval path: ``encode_vocab``,
+    ``forward_eval_trunk``, ``forward_eval_head`` and ``forward_eval``."""
+
+    def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
+                 category_head: CategoryEmbed, text_encoder: TextTransformer,
+                 clip_head: Optional[PoolingCLIPHead] = None,
+                 train_labels: Labels = (), num_queries: int = 100):
+        super().__init__(backbone, sem_seg_head, "category_head", category_head,
+                         text_encoder, clip_head, train_labels, num_queries)
+
+    def forward_eval_trunk(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Vocabulary-independent part: SD backbone, mask decoder, CLIP mask
+        embeds and the mask upsample. images [B, H, W, 3] in [0, 1]."""
+        return self._trunk(images)[0]
 
     def forward_eval_head(self, trunk: Dict[str, torch.Tensor],
                           text_embed_raw: torch.Tensor, labels: Labels,
@@ -163,12 +208,49 @@ class CategoryODISE(nn.Module):
                                             bg_prob], dim=-1) + 1e-8)
         return mask_cls
 
-    def forward_eval(self, images, text_embed_raw, labels: Labels,
-                     clip_text_embed=None, clip_labels=None,
-                     category_overlap=None):
-        """-> (mask_cls [B, Q, K+1], mask_pred [B, Q, H, W])."""
-        trunk = self.forward_eval_trunk(images)
-        mask_cls = self.forward_eval_head(trunk, text_embed_raw, labels,
-                                          clip_text_embed, clip_labels,
-                                          category_overlap)
-        return mask_cls, trunk["mask_pred"]
+
+class CaptionODISE(_EvalODISE):
+    """Caption-supervised ODISE, eval path. Its mask classifier is binary
+    (fg, bg); the vocabulary goes through ``word_head`` into cosine logits
+    against the mask embeds and the CLIP head's ensemble, and the fg
+    probability scales the class probabilities."""
+
+    def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
+                 word_head: WordEmbed, text_encoder: TextTransformer,
+                 clip_head: Optional[PoolingCLIPHead] = None,
+                 train_labels: Labels = (), num_queries: int = 100):
+        super().__init__(backbone, sem_seg_head, "word_head", word_head,
+                         text_encoder, clip_head, train_labels, num_queries)
+
+    def encode_words(self, word_tokens: torch.Tensor) -> torch.Tensor:
+        """[B, K, 77] -> [B, K, D] raw CLIP embeds of caption words."""
+        B, K, L = word_tokens.shape
+        return self.encode_vocab(word_tokens.reshape(B * K, L)).reshape(B, K, -1)
+
+    def forward_eval_trunk(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """As CategoryODISE's, plus the binary ``pred_logits`` [B, Q, 2]."""
+        trunk, outputs = self._trunk(images)
+        trunk["pred_logits"] = outputs["pred_logits"]
+        return trunk
+
+    def forward_eval_head(self, trunk: Dict[str, torch.Tensor],
+                          text_embed_raw: torch.Tensor, labels: Labels,
+                          clip_text_embed: Optional[torch.Tensor] = None,
+                          clip_labels: Optional[Labels] = None,
+                          category_overlap: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """Vocabulary-dependent tail -> mask_cls [B, Q, K+1], softmaxes in
+        float32."""
+        word_embed = self.word_head(text_embed_raw[None])["word_embed"][0]
+        open_logits = trunk["logit_scale"] * torch.einsum(
+            "bqc,kc->bqk", l2_normalize(trunk["mask_embed"]),
+            l2_normalize(word_embed)).float()
+        open_logits = ensemble_logits_with_labels(open_logits, labels, "max")
+        if self.clip_head is not None and clip_text_embed is not None:
+            open_logits = self.clip_head.ensemble(
+                trunk["clip_mask_embed"], open_logits, clip_text_embed,
+                clip_labels, category_overlap)
+        bg_prob = torch.softmax(trunk["pred_logits"].float(), dim=-1)[..., -1:]
+        class_probs = torch.softmax(open_logits.float(), dim=-1)
+        return torch.log(torch.cat([class_probs * (1.0 - bg_prob), bg_prob],
+                                   dim=-1) + 1e-8)

@@ -1,5 +1,6 @@
 """The deformable-attention CUDA kernel against its plain PyTorch version,
-on the card. Imports no JAX, so it also runs where JAX is not installed:
+and the evaluation statistics on the card against the same on the CPU.
+Imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -16,6 +17,9 @@ from odise_torch.ops.ms_deform_attn import (  # noqa: E402
 
 SHAPES = [(40, 40), (6, 8), (3, 4)]
 MAIN_PATH_SHAPES = [(32, 32), (64, 64), (128, 128)]  # 1024-px image, coarsest first
+# the 1024x2560 and 2560x1024 buckets: non-square levels, 53,760 queries
+WIDE_SHAPES = [(32, 80), (64, 160), (128, 320)]
+TALL_SHAPES = [(80, 32), (160, 64), (320, 128)]
 
 
 @pytest.fixture
@@ -74,6 +78,18 @@ def test_kernel_matches_plain_at_main_path_levels(cuda, dtype):
     queries."""
     _check(*_inputs(32, dtype, B=2, H=8, Lq=512, shapes=MAIN_PATH_SHAPES),
            MAIN_PATH_SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [WIDE_SHAPES, TALL_SHAPES], ids=["1024x2560", "2560x1024"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_matches_plain_at_bucket_levels(cuda, shapes, dtype):
+    """Batch 1, 8 heads of 32, every query of the widest and the tallest
+    bucket: a level's height and width taken the wrong way round would
+    move every sample here, where square levels cannot tell."""
+    Lq = sum(h * w for h, w in shapes)
+    assert Lq == 53760
+    _check(*_inputs(32, dtype, B=1, H=8, Lq=Lq, shapes=shapes), shapes)
 
 
 @pytest.mark.cuda
@@ -177,3 +193,39 @@ def test_resident_warps(cuda, dtype):
     its warps."""
     plan = launch_plan(1, 21504, 8, 32, dtype, 3, 4)
     assert 24 <= resident_warps(dtype, plan) <= 64
+
+
+@pytest.mark.cuda
+def test_device_eval_runner_on_the_card_matches_the_cpu(cuda):
+    """One image's statistics from mask logits on the card and the same
+    logits on the CPU: integers equal, floats within 1e-5 relative."""
+    from odise_torch.evaluation.device_eval import DeviceEvalRunner
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(3)
+    q, k, oh, ow = 12, 7, 45, 61
+    mask_cls = rng.randn(q, k + 1).astype(np.float32) * 2
+    mask_cls[np.arange(q), rng.randint(0, k, q)] += 5.0
+    mask_pred = rng.randn(q, 64, 96).astype(np.float32) * 3
+    sem_gt = rng.randint(0, k, (oh, ow)).astype(np.int32)
+    gt_ids = np.zeros((oh, ow), np.uint32)
+    gt_ids[2:20, 3:30] = 7
+    gt_ids[22:40, 5:50] = 42
+    gts = dict(sem_gt=sem_gt, pan_gt_ids=gt_ids, pan_seg_ids=np.array([7, 42], np.uint32),
+               inst_gt_masks=np.stack([gt_ids == 7, gt_ids == 42]))
+    stats, confs = [], []
+    for dev in ("cuda", "cpu"):
+        runner = DeviceEvalRunner(num_classes=k, thing_mask=np.arange(k) < 4,
+                                  object_mask_threshold=0.0, overlap_threshold=0.8,
+                                  topk=20, grids=((48, 64),))
+        stats.append(runner.process(torch.from_numpy(mask_cls).to(dev),
+                                    torch.from_numpy(mask_pred).to(dev), (60, 81),
+                                    (oh, ow), **gts))
+        confs.append(runner.flush_confusion())
+    got, want = stats
+    assert sorted(got) == sorted(want) and np.array_equal(*confs)
+    for key, w in want.items():
+        if isinstance(w, int) or w.dtype.kind != "f":
+            assert np.array_equal(got[key], w), key
+        else:
+            np.testing.assert_allclose(got[key], w, rtol=1e-5, atol=0, err_msg=key)

@@ -178,17 +178,25 @@ def test_entry_point_needs_cuda_unless_asked_for_cpu():
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_category_odise("tiny")
-    with pytest.raises(ValueError):
-        build_category_odise("full", device="cpu")  # needs train_labels
+    # FULL trains on COCO panoptic's prompt-engineered labels by default, as
+    # the JAX factory does
+    from odise_tpu.data.build import get_openseg_labels
+
+    model = build_category_odise("full", device="meta", dtype=torch.bfloat16)
+    assert model.train_labels == tuple(
+        tuple(l) for l in get_openseg_labels("coco_panoptic", True))
+    assert model.train_labels == jax_build("full").train_labels
 
 
 def test_port_imports_no_jax():
-    """With jax, flax and odise_tpu unimportable: import every odise_torch
-    module, build TINY on the CPU and run forward_eval. chip_smoke.py must
-    not import them either."""
+    """With jax, flax, odise_tpu, PIL and cv2 unimportable (the card's
+    machine has neither image library): import every odise_torch module,
+    build TINY CategoryODISE on the CPU and run forward_eval, evaluate it on
+    one in-memory synthetic record, and build TINY CaptionODISE.
+    chip_smoke.py must not import them either."""
     script = textwrap.dedent("""
         import sys
-        for name in ("jax", "jaxlib", "flax", "optax", "odise_tpu"):
+        for name in ("jax", "jaxlib", "flax", "optax", "odise_tpu", "PIL", "cv2"):
             sys.modules[name] = None
         import importlib, pkgutil
         import torch
@@ -204,7 +212,18 @@ def test_port_imports_no_jax():
                                            (("a",), ("b",), ("c",)))
         assert cls.shape == (1, 10, 4) and pred.shape == (1, 10, 64, 64)
         assert bool(torch.isfinite(cls).all()) and bool(torch.isfinite(pred).all())
-        assert not any(k.split(".")[0] in ("jax", "flax", "odise_tpu")
+        from odise_torch.data.synthetic import SYNTH_LABELS, SYNTH_THING, make_shapes_records
+        from odise_torch.evaluation.run import evaluate_open_vocab
+        from odise_torch.model_zoo.factory import build_caption_odise
+        from odise_torch.models.wrapper import OpenPanopticInference, build_open_vocabulary
+        infer = OpenPanopticInference(model, build_open_vocabulary(
+            model, SYNTH_LABELS, thing_mask=SYNTH_THING))
+        r = evaluate_open_vocab(infer, make_shapes_records(1, size=48), labels=SYNTH_LABELS,
+                                thing_mask=SYNTH_THING, short_side=64, max_size=160)
+        assert r["images"] == 1 and r["host_fallback_images"] == 0
+        caption = build_caption_odise("tiny", device="cpu")
+        assert type(caption).__name__ == "CaptionODISE"
+        assert not any(k.split(".")[0] in ("jax", "flax", "odise_tpu", "PIL", "cv2")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
     """)
@@ -223,7 +242,7 @@ def test_port_imports_no_jax():
         elif isinstance(node, ast.ImportFrom):
             imported.add((node.module or "").split(".")[0])
     assert "odise_torch" in imported
-    assert not imported & {"jax", "jaxlib", "flax", "optax", "odise_tpu"}
+    assert not imported & {"jax", "jaxlib", "flax", "optax", "odise_tpu", "PIL", "cv2"}
 
 
 def test_shared_noise_is_jax_prng_key_42():
