@@ -28,13 +28,15 @@ def ms_deform_attn_torch(value: torch.Tensor,
                          sampling_locations: torch.Tensor,
                          attention_weights: torch.Tensor) -> torch.Tensor:
     """Plain version: per level ``F.grid_sample`` plus a weighted sum, in
-    float32, cast to the value's dtype at the end."""
+    float32 (float64 for a float64 value), cast to the value's dtype at the
+    end."""
     B, _, n_heads, hd = value.shape
     _, Lq, _, n_levels, n_points, _ = sampling_locations.shape
-    value_list = value.float().split([h * w for h, w in spatial_shapes], dim=1)
-    grids = 2 * sampling_locations.float() - 1
-    weights = attention_weights.float()
-    out = value.new_zeros((B, Lq, n_heads, hd), dtype=torch.float32)
+    acc = torch.float64 if value.dtype == torch.float64 else torch.float32
+    value_list = value.to(acc).split([h * w for h, w in spatial_shapes], dim=1)
+    grids = 2 * sampling_locations.to(acc) - 1
+    weights = attention_weights.to(acc)
+    out = value.new_zeros((B, Lq, n_heads, hd), dtype=acc)
     for lvl, (h, w) in enumerate(spatial_shapes):
         v = value_list[lvl].reshape(B, h, w, n_heads, hd)
         v = v.permute(0, 3, 4, 1, 2).reshape(B * n_heads, hd, h, w)
