@@ -44,12 +44,30 @@ Phases, each fatal on failure:
      against the same statistics on the CPU; it times the kernel on the
      widest bucket's inputs and traces one request there. Then a FULL
      CaptionODISE serves the 1024-px pattern image (checksum
-     ``CAPTION_SUMS``) and the same six records.
+     ``CAPTION_SUMS``) and the same six records;
+  8. training: FULL CategoryODISE built for training (bf16 compute, float32
+     trainable parameters, no CLIP head, slide training over serial
+     checkpointed crops), its trainable count held to the JAX package's
+     28,591,297; synthetic records through the LSJ mapper at 1024 px with
+     100 instance slots; five optimizer steps with ``Trainer`` at batch 2
+     (it fits: 12.2 GiB at peak on an NVIDIA H100 80GB HBM3, 700.00 W, so
+     no accumulation): finite
+     metrics, 6 forward and 6 backward kernel launches per image batch, the
+     first step's loss held to ``TRAIN_SUMS``, grad_norm > 0, every frozen
+     parameter bitwise unchanged; step times, peak memory, one warm step
+     under the profiler; the backward kernel on the main path's own inputs
+     timed cold and warm against its bound and the plain version; one TINY
+     step on the card against the same step on the CPU, then again with
+     two faults planted in the backward kernel, each of which that check
+     must fail; two FULL CaptionODISE steps with the grounding loss.
+Phase 1 also builds the backward kernel and prints its resident warps;
+phase 2 also holds it against the plain backward run in float64.
 Each phase prints its time. Then it prints the ``kernels`` JSON line and,
 last, the ``ok`` line.
 It needs a card and the repository around it, and exits non-zero without.
 """
 
+import importlib
 import json
 import re
 import subprocess
@@ -76,6 +94,18 @@ LOGIT_SUMS = {133: 7.809334e6, 20: 7.750097e6}
 # CategoryODISE, and for CaptionODISE's K=133 pattern request
 EVAL_SUMS = [7.810762e6, 7.809446e6, 1.072929e7, 1.072937e7, 1.331647e7, 1.959822e7]
 CAPTION_SUMS = {133: 7.813043e6}
+# phase 8: the first FULL CategoryODISE train step's total_loss, recorded on
+# an H100 with the pattern weights and phase 8's data and seeds; held to 1e-3
+# relative, as the checksums above
+TRAIN_SUMS = {"category_first_total_loss": 1.665287e2}
+TRAIN_STEPS, CAPTION_STEPS = 5, 2
+# power-of-two level sizes, where float32 holds every pixel coordinate
+# loc * w - 0.5 of a float32 location exactly, so the location gradient's
+# jumps at whole pixels fall on the same side in float32 and float64
+GENERIC = [(16, 32), (8, 16)]
+BWD_KERNEL = "ms_deform_attn_bwd_kernel"
+# its template arguments: element type, chunk width in elements
+BWD_KERNEL_ARGS = re.compile(BWD_KERNEL + r"<(\w+), (\d+)>")
 # phase 7's records: (rows, cols) cut from the 640-px one, after the 1024-px one
 CUTS = [(640, 640), (480, 640), (640, 480), (384, 640), (256, 640)]
 KERNEL = "ms_deform_attn_fwd_kernel"
@@ -97,7 +127,7 @@ def card_line():
 
 def build_kernels():
     from odise_torch.ops import _build
-    from odise_torch.ops.ms_deform_attn import launch_plan, resident_warps
+    from odise_torch.ops.ms_deform_attn import backward_plan, launch_plan, resident_warps
 
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -117,16 +147,21 @@ def build_kernels():
                     f"{'3 levels of 4 points' if plan.specialised else 'any counts'}>: "
                     f"{resident_warps(dtype, plan)} resident warps per SM "
                     f"in blocks of {plan.block_threads}")
+            plan = backward_plan(1, 1, HEADS, head_dim, dtype)
+            log(f"ms_deform_attn backward <{str(dtype)[6:]}, chunk {plan.chunk_elems}> "
+                f"({plan.threads_per_head} chunks a head on {plan.lanes_per_head} lanes): "
+                f"{resident_warps(dtype, plan)} resident warps per SM in blocks of "
+                f"{plan.block_threads}")
 
 
-def deform_inputs(kind, dtype, gen, shapes=SHAPES):
+def deform_inputs(kind, dtype, gen, shapes=SHAPES, batch=1, points=POINTS):
     """Deformable-attention inputs on the card: 8 heads of 32 over every
     query of the levels ``shapes``, at random, out-of-range or pixel-centre
     locations."""
     Lq = sum(h * w for h, w in shapes)
     L = len(shapes)
-    value = torch.randn((1, Lq, HEADS, HEAD_DIM), generator=gen, device="cuda")
-    shape = (1, Lq, HEADS, L, POINTS, 2)
+    value = torch.randn((batch, Lq, HEADS, HEAD_DIM), generator=gen, device="cuda")
+    shape = (batch, Lq, HEADS, L, points, 2)
     if kind == "random":
         loc = torch.rand(shape, generator=gen, device="cuda")
     elif kind == "out_of_range":
@@ -136,8 +171,8 @@ def deform_inputs(kind, dtype, gen, shapes=SHAPES):
                           device="cuda")[None, None, None, :, None, :]
         idx = torch.floor(torch.rand(shape, generator=gen, device="cuda") * wh)
         loc = (idx + 0.5) / wh
-    logits = torch.randn((1, Lq, HEADS, L * POINTS), generator=gen, device="cuda")
-    attn = torch.softmax(logits, -1).reshape(1, Lq, HEADS, L, POINTS)
+    logits = torch.randn((batch, Lq, HEADS, L * points), generator=gen, device="cuda")
+    attn = torch.softmax(logits, -1).reshape(batch, Lq, HEADS, L, points)
     return value.to(dtype), loc, attn.to(dtype)
 
 
@@ -172,6 +207,64 @@ def check_kernel(value, loc, attn, label, shapes=SHAPES):
     if not err <= tol:
         raise AssertionError(f"kernel disagrees with its plain version [{label}]")
     return err
+
+
+def check_backward(value, loc, attn, label, shapes=SHAPES, gen=None):
+    """The backward kernel and the plain backward in float32, each against
+    the plain backward in float64 on the same inputs and a random grad_out.
+    For each gradient the kernel may be off float64 by the float32 plain
+    version's own error plus 1e-5 of the largest gradient (bf16: plus two
+    bf16 ulps of it, the kernel rounds its float32 sums once). Returns the
+    kernel's largest error and its gradients."""
+    from odise_torch.ops.ms_deform_attn import (ms_deform_attn_backward,
+                                                ms_deform_attn_backward_torch)
+
+    B, Lq, H = loc.shape[:3]
+    grad_out = torch.randn((B, Lq, H * value.shape[-1]), generator=gen,
+                           device="cuda").to(value.dtype)
+    got = ms_deform_attn_backward(value, shapes, loc, attn, grad_out)
+    plain = ms_deform_attn_backward_torch(value.float(), shapes, loc, attn.float(),
+                                          grad_out.float())
+    exact = ms_deform_attn_backward_torch(value.double(), shapes, loc.double(),
+                                          attn.double(), grad_out.double())
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, p, e in zip(("value", "locations", "weights"), got, plain, exact):
+        err = float((g.double() - e).abs().max())
+        plain_err = float((p.double() - e).abs().max())
+        scale = float(e.abs().max())
+        rel = 1e-5 if value.dtype == torch.float32 else 2 * 2.0 ** -8
+        tol = plain_err + rel * scale
+        log(f"backward vs float64 [{label}] grad {name}: max_abs_err {err:.3e}, plain "
+            f"{plain_err:.3e}, largest {scale:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"backward kernel disagrees with its plain version "
+                                 f"[{label}, grad {name}]")
+        worst = max(worst, err)
+    return worst, got
+
+
+def check_backward_far_out(dtype, gen):
+    """Every sample at +-1e6: all three gradients exactly 0. Then one level
+    far out: that level's weight and location gradients exactly 0."""
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn_backward
+
+    value, loc, attn = deform_inputs("random", dtype, gen, batch=2)
+    far = torch.where(torch.rand(loc.shape, generator=gen, device="cuda") < 0.5,
+                      -1e6, 1e6).to(torch.float32)
+    grad_out = torch.randn((2, loc.shape[1], HEADS * HEAD_DIM), generator=gen,
+                           device="cuda").to(dtype)
+    got = ms_deform_attn_backward(value, SHAPES, far, attn, grad_out)
+    one = loc.clone()
+    one[:, :, :, 1] = far[:, :, :, 1]
+    _, g_loc, g_attn = ms_deform_attn_backward(value, SHAPES, one, attn, grad_out)
+    torch.cuda.synchronize()
+    zero = [int((g != 0).sum()) for g in got] + [
+        int((g_loc[:, :, :, 1] != 0).sum()), int((g_attn[:, :, :, 1] != 0).sum())]
+    log(f"backward at +-1e6 [{str(dtype)[6:]}]: nonzero gradient elements {zero} "
+        "(value, locations, weights; the far level's locations, weights)")
+    if any(zero):
+        raise AssertionError("far-out samples gave a gradient other than 0")
 
 
 def time_cold(fn, iters=TIMING_ITERS):
@@ -210,23 +303,28 @@ def time_warm(fn, iters=WARM_ITERS):
     return start.elapsed_time(end) / iters
 
 
-def profile_request(request_fn):
-    """One request, ``request_fn()``, under torch.profiler (CPU and CUDA
-    activity). Prints the ten device kernels that take the most time and the
-    device's idle share over the request; returns the deformable-attention
-    kernel's launches in the request as (kernel name, device ms)."""
+def profile_request(request_fn, inference=True, kernel=KERNEL):
+    """One request (or train step), ``request_fn()``, under torch.profiler
+    (CPU and CUDA activity). Prints the ten device kernels that take the
+    most time and the device's idle share over the request; returns the
+    launches of the kernels whose name holds ``kernel`` as (kernel name,
+    device ms)."""
+    import contextlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("request"):
             request_fn()
     events = prof.events()
     window = [e.time_range for e in events
               if e.name == "request" and e.device_type == DeviceType.CPU]
-    device = [e for e in events
-              if e.device_type == DeviceType.CUDA and e.name != "request"]
+    # device work only: not the ranges that record_function annotates on the
+    # device timeline (the request itself, the optimizer's step)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != "request" and not getattr(e, "is_user_annotation", False)]
     if len(window) != 1 or not device:
         raise AssertionError(f"the profiler recorded {len(window)} request "
                              f"windows and {len(device)} device events")
@@ -247,7 +345,7 @@ def profile_request(request_fn):
     for name, (n, tot) in top:
         log(f"  {tot / 1e3:9.3f} ms {100 * tot / total:5.1f}% {n:5d}x  {name[:110]}")
     return [(e.name, e.time_range.elapsed_us() / 1e3) for e in device
-            if KERNEL in e.name]
+            if kernel in e.name]
 
 
 def deform_bound_ms(value, loc, attn, shapes=SHAPES):
@@ -657,6 +755,383 @@ def eval_caption(records, labels, thing, image):
     return launches
 
 
+def backward_bound_ms(value, loc, attn, shapes=SHAPES):
+    """Least time for the card for the backward: value, locations, weights
+    and grad_out read once and the three gradients written once at the HBM
+    rate, or its float32 operations, whichever is larger. The weight
+    gradient and both location sums follow from the four corner dot
+    products sum_c g_c v_kc: 8 operations per sample and channel; the value
+    gradient takes a multiply and an add per inside corner and channel."""
+    elem = value.element_size()
+    samples = loc.numel() // 2
+    n_bytes = (2 * value.numel() * elem + 2 * loc.numel() * 4 + 2 * attn.numel() * elem
+               + value.numel() // value.shape[1] * loc.shape[1] * elem)
+    corners = 0
+    for lvl, (h, w) in enumerate(shapes):
+        x0 = torch.floor(loc[:, :, :, lvl, :, 0] * w - 0.5)
+        y0 = torch.floor(loc[:, :, :, lvl, :, 1] * h - 0.5)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                corners += int(((x0 + dx >= 0) & (x0 + dx <= w - 1)
+                                & (y0 + dy >= 0) & (y0 + dy <= h - 1)).sum())
+    flops = (samples * 8 + corners * 2) * value.shape[-1]
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOPS * 1e3
+    log(f"backward bound: {n_bytes / 1e6:.1f} MB -> {t_bytes * 1e3:.1f} us; "
+        f"{flops / 1e9:.3f} GFLOP -> {t_ops * 1e3:.1f} us")
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def backward_on_inputs(layer0, label):
+    """The backward kernel on the inputs the training path gave the first
+    encoder layer (its first call), with a random grad_out: held against the
+    plain backward, timed cold and warm beside the plain backward, and its
+    bound."""
+    from odise_torch.ops.ms_deform_attn import (launch_backward,
+                                                ms_deform_attn_backward_torch)
+
+    src, pos, ref_points, levels = layer0.first[tuple(SHAPES)]
+    with torch.no_grad():
+        v, loc, attn = layer0.layer.self_attn.sampling_inputs(
+            (src + pos).detach(), ref_points, src.detach(), levels)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        err, _ = check_backward(v, loc, attn, label, SHAPES, gen)
+        grad_out = torch.randn((loc.shape[0], loc.shape[1], v.shape[2] * v.shape[3]),
+                               generator=gen, device="cuda").to(v.dtype)
+        cold = time_cold(lambda: launch_backward(v, SHAPES, loc, attn, grad_out))
+        warm = time_warm(lambda: launch_backward(v, SHAPES, loc, attn, grad_out))
+        plain = time_cold(lambda: ms_deform_attn_backward_torch(v, SHAPES, loc, attn,
+                                                                grad_out), iters=20)
+        bound, bound_by = backward_bound_ms(v, loc, attn)
+    log(f"deform attn backward on {label} (batch {loc.shape[0]}, {loc.shape[1]} queries): "
+        f"kernel {cold:.4f} ms cold, {warm:.4f} ms warm, plain {plain:.4f} ms, bound "
+        f"{bound:.4f} ms ({bound_by})")
+    return dict(max_abs_err=err, ms=cold, warm_ms=warm, plain_ms=plain, bound_ms=bound,
+                bound_by=bound_by)
+
+
+def train_loader(size, with_captions, seed):
+    """Phase 8's data: synthetic records of ``size`` px through the LSJ
+    mapper at 1024 px with 100 instance slots, batches of 2 on the card."""
+    from odise_torch.data.dataset_mapper import COCOPanopticDatasetMapper
+    from odise_torch.data.loader import build_train_loader
+    from odise_torch.data.synthetic import make_shapes_records
+
+    records = make_shapes_records(4, size=size, seed=seed, with_captions=with_captions,
+                                  vary=with_captions)
+    mapper = COCOPanopticDatasetMapper(image_size=1024, max_instances=100,
+                                       with_captions=with_captions, device="cuda")
+    return build_train_loader(records, mapper, 2, seed=seed)
+
+
+class TimedStep:
+    """A train step timed from the host with a synchronize on either side,
+    with the forward and backward kernel launches of each call."""
+
+    def __init__(self, step):
+        self.step, self.ms, self.launches = step, [], []
+
+    def __call__(self, batch, generator):
+        from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_backward
+
+        f0, b0 = ms_deform_attn.launches, ms_deform_attn_backward.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = self.step(batch, generator)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.launches.append((ms_deform_attn.launches - f0,
+                              ms_deform_attn_backward.launches - b0))
+        return metrics
+
+
+def build_for_training(build, labels=None):
+    """A FULL model for training on the card: bf16 compute, no CLIP head,
+    slide training over serial checkpointed crops; the towers frozen, then
+    the pattern weights."""
+    from odise_torch.engine import partition_params
+
+    kw = {} if labels is None else dict(train_labels=labels)
+    model = build("full", with_clip_head=False, use_checkpoint=True, slide_training=True,
+                  slide_serial=True, device="cuda", dtype=torch.bfloat16, **kw)
+    trainable, frozen = partition_params(model)
+    pattern_fill_(model)
+    return model, trainable, frozen
+
+
+def train_category(labels):
+    """Phase 8's FULL CategoryODISE steps. Returns the numbers the kernels
+    line and PERF.md take."""
+    import statistics
+
+    from odise_torch.engine import Trainer, make_category_train_step, make_optimizer
+    from odise_torch.losses import CriterionConfig
+    from odise_torch.model_zoo.factory import build_category_odise
+    from odise_torch.models.clip.tokenizer import tokenize
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_backward
+
+    t0 = time.perf_counter()
+    model, trainable, frozen = build_for_training(build_category_odise, labels)
+    n_train = sum(p.numel() for p in trainable.values())
+    log(f"FULL CategoryODISE for training: {n_train:,} trainable parameters in "
+        f"{len(trainable)} tensors (float32), {sum(p.numel() for p in frozen.values()):,} "
+        f"frozen; built in {time.perf_counter() - t0:.1f} s")
+    if n_train != 28_591_297:
+        raise AssertionError(f"{n_train} trainable parameters, not the JAX package's "
+                             "28,591,297")
+    with torch.no_grad():
+        text = model.encode_vocab(torch.from_numpy(
+            tokenize([l[0] for l in labels])).long().cuda())
+    frozen_before = {k: p.detach().clone() for k, p in frozen.items()}
+    cfg = CriterionConfig(num_classes=len(labels))
+    layer0 = Layer0Inputs(model)
+    data = train_loader(640, False, 0)
+    batch0 = next(data)
+
+    def loader():
+        yield batch0
+        yield from data
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    opt = make_optimizer(trainable, lr=1e-4, weight_decay=0.05)
+    timed = TimedStep(make_category_train_step(model, opt, cfg, text, labels,
+                                               grad_clip=0.01))
+    trainer = Trainer(timed, loader(), gen)
+    torch.cuda.reset_peak_memory_stats()
+    ms_deform_attn.launches = ms_deform_attn_backward.launches = 0
+    trainer.train(0, TRAIN_STEPS)
+    launches = (ms_deform_attn.launches, ms_deform_attn_backward.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    layer0.hook.remove()
+    hist = trainer.metrics_history
+    for i, (m, ms, ln) in enumerate(zip(hist, timed.ms, timed.launches)):
+        log(f"category step {i}: {ms:.1f} ms, total_loss {m['total_loss']:.6e}, grad_norm "
+            f"{m['grad_norm']:.4e}, loss_ce {m['loss_ce']:.4f}, loss_mask "
+            f"{m['loss_mask']:.4f}, loss_dice {m['loss_dice']:.4f}, deform-attn "
+            f"launches forward {ln[0]}, backward {ln[1]}")
+    first_ms, warm_ms = timed.ms[0], statistics.median(timed.ms[1:])
+    log(f"category training (batch 2): first step {timed.ms[0]:.1f} ms, warm step "
+        f"{warm_ms:.1f} ms (median of steps 2 to {TRAIN_STEPS}), peak memory allocated "
+        f"{peak:.2f} GiB; checksum: TRAIN_SUMS = "
+        f"{{'category_first_total_loss': {hist[0]['total_loss']:.6e}}}")
+    faults = [(any(ln != (6, 6) for ln in timed.launches),
+               "deform-attn launches other than 6 forward and 6 backward per image batch"),
+              (not all(m["grad_norm"] > 0 for m in hist), "grad_norm 0"),
+              (len(hist) != TRAIN_STEPS, f"{len(hist)} steps")]
+    want = TRAIN_SUMS["category_first_total_loss"]
+    if want is not None:
+        faults.append((not abs(hist[0]["total_loss"] - want) <= 1e-3 * abs(want),
+                       f"first total_loss not within 1e-3 of the recorded {want:.6e}"))
+    changed = [k for k, p in frozen.items() if not torch.equal(p, frozen_before[k])]
+    faults.append((bool(changed), f"frozen parameters changed: {changed[:5]}"))
+    for bad, what in faults:
+        if bad:
+            raise AssertionError(f"category training: {what}")
+    del frozen_before
+    log(f"{len(frozen)} frozen tensors bitwise unchanged after {TRAIN_STEPS} steps")
+
+    in_place = profile_request(lambda: trainer.train(TRAIN_STEPS, TRAIN_STEPS + 1),
+                               inference=False, kernel="ms_deform_attn_")
+    fwd = [ms for n, ms in in_place if KERNEL in n]
+    bwd = [ms for n, ms in in_place if BWD_KERNEL in n]
+    if len(fwd) != 6 or len(bwd) != 6:
+        raise AssertionError(f"the profiler saw {len(fwd)} forward and {len(bwd)} "
+                             "backward deform-attn launches in one step")
+    ran = {m.groups() for m in (BWD_KERNEL_ARGS.search(n) for n, _ in in_place) if m}
+    log(f"backward kernel launched as {sorted(ran)} (element type, chunk)")
+    if len(ran) != 1:
+        raise AssertionError(f"the backward kernel ran as {sorted(ran)} in one step, "
+                             "expected one variant with readable template arguments")
+    elem_type, elems = ran.pop()
+    bwd_vector_bytes = ELEMENT_BYTES[elem_type] * int(elems)
+    if (elem_type, bwd_vector_bytes) != ("__nv_bfloat16", 16):
+        raise AssertionError("the training path did not run the backward kernel on 16-byte "
+                             "bf16 chunks")
+    log(f"deform attn in one profiled train step: forward {sum(fwd):.4f} ms over "
+        f"{len(fwd)} launches ({sum(fwd) / len(fwd):.4f} ms each), backward "
+        f"{sum(bwd):.4f} ms over {len(bwd)} launches ({sum(bwd) / len(bwd):.4f} ms each)")
+    bwd_numbers = backward_on_inputs(layer0, "training-path inputs, bfloat16")
+    del layer0, model, trainable, frozen, opt, trainer, timed
+    torch.cuda.empty_cache()
+    return dict(launches=launches, peak_gib=peak, first_ms=first_ms, warm_ms=warm_ms,
+                bwd_vector_bytes=bwd_vector_bytes, fwd_in_place_ms=sum(fwd) / len(fwd),
+                bwd_in_place_ms=sum(bwd) / len(bwd), bwd=bwd_numbers)
+
+
+class PointDraws:
+    """The criterion's uniform draws (``matcher.draw_uniform``) from one
+    seeded host generator per (kind, layer) and call, so that two runs of
+    the same step, on the card and on the CPU, sample the same points."""
+
+    def __init__(self, seed):
+        self.seed, self.calls = seed, {}
+
+    def __call__(self, generator, shape, device, kind, layer):
+        import numpy as np
+
+        n = self.calls.get((kind, layer), 0)
+        self.calls[(kind, layer)] = n + 1
+        key = [self.seed, n, layer, ("match", "oversample", "random").index(kind)]
+        u = np.random.RandomState(key).rand(*shape).astype(np.float32)
+        return torch.from_numpy(u).to(device)
+
+
+def tiny_train_step(dev, labels, state, batch):
+    """One TINY CategoryODISE train step (float32, a 2x2 slide grid of
+    128-px crops) on ``dev`` from the weights ``state`` (None: the seeded
+    build's), on ``batch``, with the points of ``PointDraws(7)``. Returns
+    the metrics, the trainable gradients on the CPU, the deform-attn
+    launches (forward, backward) and the weights it started from."""
+    from odise_torch.engine import make_category_train_step, make_optimizer, partition_params
+    from odise_torch.losses import CriterionConfig, matcher
+    from odise_torch.model_zoo.factory import build_category_odise
+    from odise_torch.models.clip.tokenizer import tokenize
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_backward
+
+    model = build_category_odise("tiny", train_labels=labels, device=dev,
+                                 backbone_in_size=(128, 128))
+    if state is None:
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(state)
+    trainable, _ = partition_params(model)
+    with torch.no_grad():
+        text = model.encode_vocab(torch.from_numpy(
+            tokenize([l[0] for l in labels])).long().to(dev))
+    step = make_category_train_step(
+        model, make_optimizer(trainable),
+        CriterionConfig(num_classes=len(labels), num_points=256), text, labels)
+    draw = matcher.draw_uniform
+    matcher.draw_uniform = PointDraws(7)
+    try:
+        f0, b0 = ms_deform_attn.launches, ms_deform_attn_backward.launches
+        metrics = step({k: v.to(dev) for k, v in batch.items()}, None)
+        launched = (ms_deform_attn.launches - f0, ms_deform_attn_backward.launches - b0)
+    finally:
+        matcher.draw_uniform = draw
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.grad.detach().cpu() for k, p in trainable.items()}, launched, state)
+
+
+def card_vs_cpu(cpu, card):
+    """The TINY step's readings: the largest relative loss difference, the
+    relative L2 difference of the whole gradient set, and each tensor's
+    largest difference over its largest CPU entry (plus 1e-6)."""
+    (cpu_m, cpu_g), (card_m, card_g) = cpu, card
+    loss_err = max(abs(card_m[k] - v) / max(abs(v), 1e-30) for k, v in cpu_m.items()
+                   if k.startswith("loss") or k == "total_loss")
+    per_tensor = {k: float((card_g[k] - g).abs().max()) / (float(g.abs().max()) + 1e-6)
+                  for k, g in cpu_g.items()}
+    diff = sum(float((card_g[k] - g).double().square().sum()) for k, g in cpu_g.items())
+    norm = sum(float(g.double().square().sum()) for g in cpu_g.values())
+    return loss_err, (diff / norm) ** 0.5, per_tensor
+
+
+def planted_faults():
+    """Wrong backward kernels, each the real kernel's gradients changed
+    after its launch: the value gradient scaled by 0.9, and the location
+    gradient without its level-size factor (w, h)."""
+    def value_scaled(grads, shapes):
+        return (grads[0] * 0.9,) + tuple(grads[1:])
+
+    def loc_without_size(grads, shapes):
+        wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                          device=grads[1].device)
+        return grads[0], grads[1] / wh[None, None, None, :, None, :], grads[2]
+
+    return {"grad_value x 0.9": value_scaled,
+            "grad_loc without its (w, h) factor": loc_without_size}
+
+
+def tiny_train_card_vs_cpu():
+    """One TINY CategoryODISE train step on the card and on the CPU from the
+    same weights, batch and points. Losses within 1e-3 relative. Gradients
+    (after the clip, the same scale on both): the whole trainable set within
+    1e-2 of the CPU's in L2 norm, and each tensor within 5e-2 of its largest
+    CPU entry plus 1e-6. Float32 on both sides, other sum orders (atomics in
+    the backward kernel and in cuDNN) through some 100 layers of backward;
+    TINY's projections normalise groups of one channel, whose backward
+    cancels most of the gradient, so a tensor's own error runs higher than
+    the set's (3.1e-2 for ``backbone.proj_0.conv1.weight`` on an H100 80GB
+    HBM3 at 700 W). Then the same step on the card with each of
+    ``planted_faults`` in the backward kernel: the check must fail each.
+    Returns the set's relative L2 error."""
+    from odise_torch.data.dataset_mapper import COCOPanopticDatasetMapper
+    from odise_torch.data.loader import build_train_loader
+    from odise_torch.data.synthetic import make_shapes_records
+
+    # the module (the package exports its function under the same name)
+    mda = importlib.import_module("odise_torch.ops.ms_deform_attn")
+    labels = (("cat",), ("dog",), ("grass",))
+    mapper = COCOPanopticDatasetMapper(image_size=256, max_instances=4, device="cpu")
+    batch = next(build_train_loader(make_shapes_records(2, size=256, seed=3), mapper, 2,
+                                    seed=3))
+    torch.manual_seed(0)  # the TINY weights, so that every run reads the same
+    cpu_m, cpu_g, cpu_l, state = tiny_train_step("cpu", labels, None, batch)
+    card_m, card_g, card_l, _ = tiny_train_step("cuda", labels, state, batch)
+    if cpu_l != (0, 0) or card_l != (2, 2):
+        raise AssertionError(f"TINY step launches: CPU {cpu_l}, card {card_l}; expected "
+                             "none on the CPU, 2 forward and 2 backward on the card")
+
+    def passes(loss_err, set_err, per_tensor):
+        return loss_err <= 1e-3 and set_err <= 1e-2 and max(per_tensor.values()) <= 5e-2
+
+    def report(what, card_total, readings):
+        loss_err, set_err, per_tensor = readings
+        worst = sorted(per_tensor, key=per_tensor.get, reverse=True)[:3]
+        log(f"TINY train step card vs CPU{what}: total_loss {card_total:.6e} vs "
+            f"{cpu_m['total_loss']:.6e}, largest relative loss difference {loss_err:.3e} "
+            f"(tolerance 1e-3); gradients: relative L2 difference of the set {set_err:.3e} "
+            f"(tolerance 1e-2), largest per tensor " + ", ".join(
+                f"{k} {per_tensor[k]:.3e}" for k in worst) + " (tolerance 5e-2)")
+
+    readings = card_vs_cpu((cpu_m, cpu_g), (card_m, card_g))
+    report("", card_m["total_loss"], readings)
+    if not passes(*readings):
+        raise AssertionError("TINY train step: the card disagrees with the CPU")
+    real = mda.launch_backward
+    for name, fault in planted_faults().items():
+        def faulty(value, spatial_shapes, *args, fault=fault, **kw):
+            return fault(real(value, spatial_shapes, *args, **kw), spatial_shapes)
+
+        mda.launch_backward = faulty
+        try:
+            m, g, _, _ = tiny_train_step("cuda", labels, state, batch)
+        finally:
+            mda.launch_backward = real
+        planted = card_vs_cpu((cpu_m, cpu_g), (m, g))
+        report(f", planted fault {name}", m["total_loss"], planted)
+        if passes(*planted):
+            raise AssertionError(f"the TINY check passed a wrong backward kernel ({name})")
+    return readings[1]
+
+
+def train_caption():
+    """Two FULL CaptionODISE steps with the grounding loss: finite metrics,
+    6 forward and 6 backward kernel launches per step."""
+    from odise_torch.engine import Trainer, make_caption_train_step, make_optimizer
+    from odise_torch.losses import CriterionConfig
+    from odise_torch.model_zoo.factory import build_caption_odise
+
+    model, trainable, _ = build_for_training(build_caption_odise)
+    opt = make_optimizer(trainable, lr=1e-4, weight_decay=0.05)
+    timed = TimedStep(make_caption_train_step(model, opt, CriterionConfig(num_classes=1),
+                                              grad_clip=0.01))
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(timed, train_loader(640, True, 1),
+                      torch.Generator(device="cuda").manual_seed(1))
+    trainer.train(0, CAPTION_STEPS)
+    for i, (m, ms, ln) in enumerate(zip(trainer.metrics_history, timed.ms, timed.launches)):
+        log(f"caption step {i}: {ms:.1f} ms, total_loss {m['total_loss']:.6e}, "
+            f"loss_mask_word {m['loss_mask_word']:.4f}, grad_norm {m['grad_norm']:.4e}, "
+            f"deform-attn launches forward {ln[0]}, backward {ln[1]}")
+    log(f"caption training: peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if any(ln != (6, 6) for ln in timed.launches):
+        raise AssertionError("caption training: deform-attn launches other than 6 and 6")
+    if not all(m["grad_norm"] > 0 for m in trainer.metrics_history):
+        raise AssertionError("caption training: grad_norm 0")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA card: torch.cuda.is_available() is false",
@@ -691,6 +1166,18 @@ def main():
     Lq = sum(h * w for h, w in WIDE)
     plan = launch_plan(1, Lq, HEADS, HEAD_DIM, torch.bfloat16, len(WIDE), POINTS)
     log(f"launch plan at {Lq} queries (1024x2560 bucket, bf16): {plan}, {plan.warps} warps")
+    # the backward kernel: the main path's levels at batch 2, a generic
+    # level and point count, and far-out locations
+    bwd_errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("random", "out_of_range", "pixel_centres"):
+            bwd_errs.append(check_backward(
+                *deform_inputs(kind, dtype, gen, batch=2),
+                f"{SHAPES}, batch 2, {kind}, {str(dtype)[6:]}", SHAPES, gen)[0])
+        bwd_errs.append(check_backward(
+            *deform_inputs("random", dtype, gen, GENERIC, batch=2, points=3),
+            f"{GENERIC}, 3 points, batch 2, {str(dtype)[6:]}", GENERIC, gen)[0])
+        check_backward_far_out(dtype, gen)
     phase_done(2)
 
     # 3. the main path: FULL width, bf16, four 1024-px requests
@@ -811,6 +1298,14 @@ def main():
     launches_eval += eval_caption(records, coco, coco_thing, image)
     phase_done(7)
 
+    # 8. training: FULL CategoryODISE and CaptionODISE steps, TINY card vs CPU
+    torch.cuda.empty_cache()
+    train = train_category(train_labels)
+    bwd_errs.append(train["bwd"]["max_abs_err"])
+    tiny_train_card_vs_cpu()
+    train_caption()
+    phase_done(8)
+
     log(card_line())
     print(json.dumps({"kernels": [{
         "name": "ms_deform_attn", "route": "cuda",
@@ -821,8 +1316,21 @@ def main():
         "vector_bytes": vector_bytes, "plain_ms": main_path["plain_ms"],
         "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"], "library_ms": None,
         "launches_eval": launches_eval,
+        "launches_train": train["launches"][0],
+        "in_place_train_ms": train["fwd_in_place_ms"],
         "bucket_shapes_checked": [SHAPES, WIDE, TALL],
-        "largest_bucket": largest}]}),
+        "largest_bucket": largest}, {
+        "name": "ms_deform_attn_bwd", "route": "cuda",
+        "source": "odise_torch/csrc/ms_deform_attn.cu",
+        "replaces": "odise_tpu/ops/pallas/ms_deform_attn_kernel.py:285 (XLA VJP)",
+        "launches": train["launches"][1], "max_abs_err": max(bwd_errs),
+        "ms": train["bwd"]["ms"], "warm_ms": train["bwd"]["warm_ms"],
+        "in_place_ms": train["bwd_in_place_ms"], "vector_bytes": train["bwd_vector_bytes"],
+        "plain_ms": train["bwd"]["plain_ms"],
+        "bound_ms": train["bwd"]["bound_ms"], "bound_by": train["bwd"]["bound_by"],
+        "library_ms": None, "train_batch": 2,
+        "train_first_step_ms": train["first_ms"], "train_warm_step_ms": train["warm_ms"],
+        "train_peak_gib": train["peak_gib"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

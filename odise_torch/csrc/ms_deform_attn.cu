@@ -1,6 +1,7 @@
-// Multi-scale deformable attention, forward, for Hopper (sm_90a).
+// Multi-scale deformable attention, forward and backward, for Hopper (sm_90a).
+// The backward kernel, ms_deform_attn_bwd_kernel, is described where it is defined.
 //
-// Replaces the TPU kernel `_pallas_level_gather` in
+// The forward replaces the TPU kernel `_pallas_level_gather` in
 // odise_tpu/ops/pallas/ms_deform_attn_kernel.py (body `_make_level_kernel`,
 // driven by `_pallas_forward`, exported as `ms_deform_attn_pallas`), together
 // with the one-hot matmul that served the small levels there
@@ -131,6 +132,12 @@ struct Chunk<float, 4> {
   static __device__ __forceinline__ void store(float* o, const float* acc) {
     *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
   }
+  static __device__ __forceinline__ void unpack(Raw r, float* f) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
 };
 
 template <>
@@ -156,6 +163,15 @@ struct Chunk<__nv_bfloat16, 8> {
         make_uint4(bf16x2_bits(acc[0], acc[1]), bf16x2_bits(acc[2], acc[3]),
                    bf16x2_bits(acc[4], acc[5]), bf16x2_bits(acc[6], acc[7]));
   }
+  static __device__ __forceinline__ void unpack(Raw r, float* f) {
+    const unsigned words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = bf16x2(words[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
 };
 
 template <typename T>
@@ -169,6 +185,7 @@ struct Chunk<T, 1> {
   static __device__ __forceinline__ void store(T* o, const float* acc) {
     o[0] = from_f32<T>(acc[0]);
   }
+  static __device__ __forceinline__ void unpack(Raw r, float* f) { f[0] = r; }
 };
 
 // The G points' (x, y) and attention weights from position s0 on.
@@ -309,6 +326,172 @@ ms_deform_attn_fwd_kernel(const T* __restrict__ value, const float* __restrict__
   C::store(out + t * VEC, acc);
 }
 
+// Backward. Replaces the VJP of the TPU kernel's custom_vjp
+// (odise_tpu/ops/pallas/ms_deform_attn_kernel.py `_bwd`, which is jax.vjp of
+// the XLA `_hybrid_impl`). For the forward's out[b,q,h,c] it computes, from
+// grad_out g[b,q,h,c]:
+//   grad_value[b, corner, h, c]  += a * w_corner * g            (atomics)
+//   grad_attn[b,q,h,l,p]          = sum_c g * bilinear(value_l, loc)
+//   grad_loc[b,q,h,l,p,(x, y)]    = a * (w_l, h_l) * sum_c g * d bilinear / d(fx, fy)
+// where fx = x - floor(x), x = loc_x * w_l - 0.5 (so d/d loc_x carries w_l),
+// and a corner outside the level is a zero value: it adds exactly 0 to
+// every gradient, as in the forward.
+//
+// What bounds it on an H100. At the main path's shapes (B = 2, 21504
+// queries, 8 heads of 32 bf16 channels, 3 levels of 4 points) it must read
+// value, locations, weights and grad_out once and write the three gradients
+// once, about 149 MB, 0.044 ms at 3.35 TB/s. Its float32 arithmetic is less:
+// the weight gradient and both location sums follow from the four corner
+// dot products sum_c g_c v_kc (8 operations per sample and channel), and
+// the value gradient takes a multiply and an add per inside corner and
+// channel, about 2.1 GFLOP or 0.031 ms at 67 TFLOP/s (chip_smoke.py's
+// backward_bound_ms counts both on the run's own inputs). So the floor is
+// memory traffic. But grad_value is a scatter: each of the
+// 2 * 21504 * 8 * 12 samples adds to 4 corner rows of 32 channels, about
+// 0.53 G float32 atomic adds into a 22 MB scratch that L2 holds, so the
+// atomics' throughput in L2, not device memory, is expected to decide; one
+// red.global.add.v4.f32 per 4 channels instead of one scalar atomicAdd per
+// channel cut the kernel's warm time 3.7x on an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_smoke.py phase 8 before and after; PERF.md), which points the
+// same way.
+//
+// Design (simple first). The forward's thread layout: one thread per 16 B
+// chunk (or one element) of one head of one query; the thread loads its
+// chunk of grad_out once, then walks the samples one at a time. Per sample
+// it loads the 4 corner chunks (clamped rows and columns, outside corners
+// zeroed by a select, as in the forward), forms its chunk's partial sums
+// for the weight and the two location gradients and adds a * w_corner * g
+// into the float32 scratch of each inside corner, 4 channels to one vector
+// reduction where the chunk holds a multiple of 4 (else one atomicAdd per
+// element). A head owns `lanes` consecutive threads of one warp, its chunk
+// count rounded up to a power of two (4 for bf16 at head_dim 32, no more
+// than 32); the three partial sums reduce over them with __shfl_xor_sync
+// and the head's first thread stores them. Lanes past a head's last chunk,
+// and past the last head, take part in the shuffles with zeros.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kBlockThreads)
+ms_deform_attn_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                          const T* __restrict__ attn, const T* __restrict__ grad_out,
+                          float* __restrict__ grad_value, float* __restrict__ grad_loc,
+                          float* __restrict__ grad_attn, int64_t n_threads, int Lv,
+                          int Lq, int H, int D, int P, int lanes, Levels lv) {
+  using C = Chunk<T, VEC>;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int chunks = D / VEC;  // a head's chunks, no more than `lanes`
+  const int64_t head = t / lanes;
+  const int lane = (int)(t - head * lanes);
+  const bool active = t < n_threads && lane < chunks;
+  // inactive lanes read (b, q, head, chunk) = 0's inputs and add nothing
+  const int64_t qh = active ? head : 0;
+  const int c = active ? lane : 0;
+  const int h = (int)(qh % H);
+  const int64_t b = qh / H / Lq;
+  const int n_samples = lv.n * P;
+  const float* loc_q = loc + qh * n_samples * 2;
+  const T* attn_q = attn + qh * n_samples;
+  const int64_t row_stride = (int64_t)H * D;
+  const int64_t head_off = b * Lv * row_stride + (int64_t)h * D + c * VEC;
+  const T* value_bhc = value + head_off;
+  float* grad_value_bhc = grad_value + head_off;
+
+  float g[VEC];
+  C::unpack(C::keep(active, C::load(grad_out + qh * D + c * VEC)), g);
+
+  for (int l = 0; l < lv.n; ++l) {
+    const int hl = lv.h[l];
+    const int wl = lv.w[l];
+    const int64_t level_off = (int64_t)lv.start[l] * row_stride;
+    for (int p = 0; p < P; ++p) {
+      const int s = l * P + p;
+      const float x = __ldg(loc_q + 2 * s) * (float)wl - 0.5f;
+      const float y = __ldg(loc_q + 2 * s + 1) * (float)hl - 0.5f;
+      const float a = to_f32(attn_q[s]);
+      const float x0f = floorf(x);
+      const float y0f = floorf(y);
+      const bool near = active && x0f >= -1.f && x0f <= (float)(wl - 1) && y0f >= -1.f &&
+                        y0f <= (float)(hl - 1);
+      const int x0 = (int)(near ? x0f : 0.f);
+      const int y0 = (int)(near ? y0f : 0.f);
+      // 0 far out, so that no infinity or NaN of a location reaches a sum
+      const float fx = near ? x - x0f : 0.f;
+      const float fy = near ? y - y0f : 0.f;
+      const bool x0_in = near && x0 >= 0;
+      const bool x1_in = near && x0 + 1 <= wl - 1;
+      const bool y0_in = near && y0 >= 0;
+      const bool y1_in = near && y0 + 1 <= hl - 1;
+      const int64_t cx0 = (int64_t)max(x0, 0) * row_stride;
+      const int64_t cx1 = (int64_t)min(x0 + 1, wl - 1) * row_stride;
+      const int64_t ry0 = level_off + (int64_t)max(y0, 0) * wl * row_stride;
+      const int64_t ry1 = level_off + (int64_t)min(y0 + 1, hl - 1) * wl * row_stride;
+      const int64_t off[4] = {ry0 + cx0, ry0 + cx1, ry1 + cx0, ry1 + cx1};
+      const bool in[4] = {y0_in && x0_in, y0_in && x1_in, y1_in && x0_in, y1_in && x1_in};
+      float v[4][VEC];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) C::unpack(C::keep(in[k], C::load(value_bhc + off[k])), v[k]);
+      const float w[4] = {(1.f - fx) * (1.f - fy), fx * (1.f - fy), (1.f - fx) * fy, fx * fy};
+
+      float part_a = 0.f, part_x = 0.f, part_y = 0.f;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float sampled = w[0] * v[0][i] + w[1] * v[1][i] + w[2] * v[2][i] + w[3] * v[3][i];
+        const float d_fx = (1.f - fy) * (v[1][i] - v[0][i]) + fy * (v[3][i] - v[2][i]);
+        const float d_fy = (1.f - fx) * (v[2][i] - v[0][i]) + fx * (v[3][i] - v[1][i]);
+        part_a = fmaf(g[i], sampled, part_a);
+        part_x = fmaf(g[i], d_fx, part_x);
+        part_y = fmaf(g[i], d_fy, part_y);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (in[k]) {
+          float* dst = grad_value_bhc + off[k];
+          const float wa = w[k] * a;
+#pragma unroll
+          for (int i = 0; i < VEC; i += (VEC % 4 == 0 ? 4 : 1)) {
+            if constexpr (VEC % 4 == 0) {
+              // one vector reduction for 4 channels (sm_90); the scratch
+              // row and the chunk start on 16-byte boundaries
+              asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(dst + i),
+                           "f"(wa * g[i]), "f"(wa * g[i + 1]), "f"(wa * g[i + 2]),
+                           "f"(wa * g[i + 3])
+                           : "memory");
+            } else {
+              atomicAdd(dst + i, wa * g[i]);
+            }
+          }
+        }
+      }
+      for (int o = lanes / 2; o > 0; o >>= 1) {
+        part_a += __shfl_xor_sync(0xffffffffu, part_a, o);
+        part_x += __shfl_xor_sync(0xffffffffu, part_x, o);
+        part_y += __shfl_xor_sync(0xffffffffu, part_y, o);
+      }
+      if (active && c == 0) {
+        const int64_t out = qh * n_samples + s;
+        grad_attn[out] = part_a;
+        grad_loc[2 * out] = a * (float)wl * part_x;
+        grad_loc[2 * out + 1] = a * (float)hl * part_y;
+      }
+    }
+  }
+}
+
+// The backward kernel for a dtype and a chunk width, or null if there is none.
+const void* bwd_kernel_for(int dtype, int vec) {
+  if (dtype == 0 && vec == 1) return (const void*)ms_deform_attn_bwd_kernel<float, 1>;
+  if (dtype == 0 && vec == 4) return (const void*)ms_deform_attn_bwd_kernel<float, 4>;
+  if (dtype == 1 && vec == 1) return (const void*)ms_deform_attn_bwd_kernel<__nv_bfloat16, 1>;
+  if (dtype == 1 && vec == 8) return (const void*)ms_deform_attn_bwd_kernel<__nv_bfloat16, 8>;
+  return nullptr;
+}
+
+// A head's lanes: its chunk count rounded up to a power of two, or 0 where
+// that exceeds a warp.
+int bwd_lanes(int chunks) {
+  int lanes = 1;
+  while (lanes < chunks) lanes *= 2;
+  return lanes <= 32 ? lanes : 0;
+}
+
 template <typename T, int VEC>
 const void* variant(int specialised) {
   return specialised ? (const void*)ms_deform_attn_fwd_kernel<T, VEC, 3, 4>
@@ -367,6 +550,56 @@ extern "C" int ms_deform_attn_forward(const void* value, const void* loc,
   cudaGetLastError();  // clear an earlier, unrelated error
   return (int)cudaLaunchKernel(kernel, dim3((unsigned)blocks), dim3((unsigned)block_threads),
                                args, 0, static_cast<cudaStream_t>(stream));
+}
+
+// ms_deform_attn_backward launches the backward kernel on `stream`:
+// `grad_out` is [B, Lq, H * D] in the value's dtype, 16 B aligned with value
+// for `vec` > 1; `grad_value` is a zeroed float32 [B, Lv, H, D] scratch,
+// `grad_loc` float32 [B, Lq, H, L, P, 2] and `grad_attn` float32
+// [B, Lq, H, L, P], which it overwrites. A head takes D / vec chunks rounded
+// up to a power of two lanes, which must be no more than 32; blocks are
+// whole warps and cover B * Lq * H heads of such lanes. Other arguments as
+// for the forward.
+extern "C" int ms_deform_attn_backward(const void* value, const void* loc,
+                                       const void* attn, const void* grad_out,
+                                       void* grad_value, void* grad_loc, void* grad_attn,
+                                       int B, int Lv, int Lq, int H, int D, int n_levels,
+                                       int P, const void* level_hws, int dtype, int vec,
+                                       int blocks, int block_threads, void* stream) {
+  const void* kernel = bwd_kernel_for(dtype, vec);
+  if (kernel == nullptr || n_levels < 1 || n_levels > kMaxLevels || P < 1 || D % vec != 0 ||
+      block_threads < 1 || block_threads > kBlockThreads || block_threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  int lanes = bwd_lanes(D / vec);
+  if (lanes == 0) return (int)cudaErrorInvalidValue;
+  Levels lv;
+  lv.n = n_levels;
+  const int* hws = static_cast<const int*>(level_hws);
+  for (int l = 0; l < n_levels; ++l) {
+    lv.h[l] = hws[3 * l];
+    lv.w[l] = hws[3 * l + 1];
+    lv.start[l] = hws[3 * l + 2];
+  }
+  int64_t n_threads = (int64_t)B * Lq * H * lanes;
+  if (n_threads == 0) return (int)cudaSuccess;
+  if (blocks < 1 || (int64_t)blocks * block_threads < n_threads)
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {&value, &loc, &attn, &grad_out, &grad_value, &grad_loc, &grad_attn,
+                  &n_threads, &Lv, &Lq, &H, &D, &P, &lanes, &lv};
+  cudaGetLastError();  // clear an earlier, unrelated error
+  return (int)cudaLaunchKernel(kernel, dim3((unsigned)blocks), dim3((unsigned)block_threads),
+                               args, 0, static_cast<cudaStream_t>(stream));
+}
+
+// ms_deform_attn_backward_occupancy: as ms_deform_attn_occupancy, for the
+// backward kernel of a dtype and chunk width.
+extern "C" int ms_deform_attn_backward_occupancy(int dtype, int vec, int block_threads,
+                                                 int* blocks_per_sm) {
+  const void* kernel = bwd_kernel_for(dtype, vec);
+  if (kernel == nullptr || block_threads < 1 || block_threads > kBlockThreads)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                            block_threads, 0);
 }
 
 // ms_deform_attn_occupancy writes to `blocks_per_sm` how many blocks of

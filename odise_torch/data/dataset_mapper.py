@@ -1,0 +1,109 @@
+"""The training mapper: record -> fixed-shape tensors (counterpart of
+``odise_tpu/data/dataset_mapper.py``).
+
+Records are held in memory (``image`` [H, W, 3] uint8 and ``pan_seg``
+[H, W] segment ids, as ``data/synthetic.make_shapes_records`` makes them);
+the port decodes no image files. The LSJ augmentations run on the mapper's
+device, and the targets are built there: per segment a binary mask, padded
+to ``max_instances`` with a validity flag, as the JAX mapper pads them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..model_zoo.factory import resolve_device
+from ..models.clip.tokenizer import tokenize
+from .transforms import AugInput, FixedSizeCrop, RandomFlip, ResizeScale
+
+__all__ = ["COCOPanopticDatasetMapper", "collate", "default_lsj_augmentations"]
+
+
+def default_lsj_augmentations(image_size: int = 1024):
+    """The LSJ recipe: flip, scale in [0.1, 2.0] of the size, crop or pad."""
+    return [RandomFlip(0.5), ResizeScale(0.1, 2.0, image_size, image_size),
+            FixedSizeCrop((image_size, image_size))]
+
+
+@dataclasses.dataclass
+class COCOPanopticDatasetMapper:
+    """Map a record to tensors on ``device`` (default CUDA):
+
+      image [S, S, 3] float32 in [0, 1]; gt_labels [T] int64, gt_masks
+      [T, S, S] bool, gt_valid [T] bool; with captions also word_tokens
+      [num_words, 77] int64 and word_valid [num_words] bool.
+    """
+
+    image_size: int = 1024
+    max_instances: int = 100
+    with_captions: bool = False
+    num_words: int = 8
+    word_dropout: float = 0.0
+    augmentations: Optional[list] = None
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        if self.augmentations is None:
+            self.augmentations = default_lsj_augmentations(self.image_size)
+        self.device = resolve_device(self.device)
+
+    def __call__(self, record: Dict, rng: np.random.RandomState) -> Dict:
+        """``rng`` draws the augmentations and caption words."""
+        dev = self.device
+        image = torch.as_tensor(np.asarray(record["image"]), device=dev)
+        pan_seg = None
+        if "pan_seg" in record:
+            pan_seg = torch.as_tensor(np.asarray(record["pan_seg"]).astype(np.int64),
+                                      device=dev)
+        ai = AugInput(image=image, pan_seg=pan_seg)
+        for aug in self.augmentations:
+            ai = aug(ai, rng)
+        out: Dict = {"image": ai.image.float() / 255.0}
+        pan_seg = ai.pan_seg
+        T = self.max_instances
+        S_h, S_w = ai.image.shape[:2]
+        gt_labels = torch.zeros((T,), dtype=torch.long, device=dev)
+        gt_masks = torch.zeros((T, S_h, S_w), dtype=torch.bool, device=dev)
+        gt_valid = torch.zeros((T,), dtype=torch.bool, device=dev)
+        if pan_seg is not None and "segments_info" in record:
+            i = 0
+            for seg in record["segments_info"]:
+                if seg.get("iscrowd", 0):
+                    continue
+                mask = pan_seg == seg["id"]
+                if not bool(mask.any()):
+                    continue
+                if i >= T:
+                    break
+                gt_labels[i] = seg["category_id"]
+                gt_masks[i] = mask
+                gt_valid[i] = True
+                i += 1
+        out.update(gt_labels=gt_labels, gt_masks=gt_masks, gt_valid=gt_valid)
+
+        if self.with_captions:
+            words: List[str] = []
+            # words extracted offline (noun phrases), else the raw captions
+            for key in ("words", "captions"):
+                if key in record and record[key]:
+                    words = list(record[key])
+                    break
+            chosen = []
+            for _ in range(self.num_words):
+                if words and (self.word_dropout <= 0 or rng.rand() >= self.word_dropout):
+                    chosen.append(words[rng.randint(len(words))])
+                else:
+                    chosen.append("")
+            out["word_tokens"] = torch.as_tensor(tokenize(chosen).astype(np.int64),
+                                                 device=dev)
+            out["word_valid"] = torch.tensor([bool(w) for w in chosen], device=dev)
+        return out
+
+
+def collate(samples: Sequence[Dict]) -> Dict[str, torch.Tensor]:
+    """Stack mapped samples into batch tensors."""
+    return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}

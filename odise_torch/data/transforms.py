@@ -1,5 +1,9 @@
-"""Eval-time resizes and panoptic id codecs (counterpart of
-``odise_tpu/data/transforms.py``), in PyTorch instead of cv2.
+"""Augmentations, resizes and panoptic id codecs (counterpart of
+``odise_tpu/data/transforms.py``), in PyTorch instead of cv2: the LSJ
+training recipe (``RandomFlip``, ``ResizeScale``, ``FixedSizeCrop``) and
+the eval resize (``ResizeShortestEdge``), on tensors of any device, with
+their random draws from the same ``np.random.RandomState`` calls as the JAX
+package's, so that one seed gives one flip, scale and crop window.
 
 The JAX package resizes with cv2: ``INTER_LINEAR`` for images and
 ``INTER_NEAREST`` for label maps. Here:
@@ -65,6 +69,62 @@ class AugInput:
         if self.pan_seg is not None:
             self.pan_seg = seg_fn(self.pan_seg)
         return self
+
+
+class RandomFlip:
+    def __init__(self, prob: float = 0.5, horizontal: bool = True):
+        self.prob = prob
+        self.horizontal = horizontal
+
+    def __call__(self, ai: AugInput, rng: np.random.RandomState) -> AugInput:
+        if rng.rand() < self.prob:
+            ax = 1 if self.horizontal else 0
+            return ai.apply(lambda x: torch.flip(x, (ax,)), lambda x: torch.flip(x, (ax,)))
+        return ai
+
+
+class ResizeScale:
+    """Scale by U(min_scale, max_scale) relative to a target size (LSJ)."""
+
+    def __init__(self, min_scale: float, max_scale: float,
+                 target_height: int, target_width: int):
+        self.min_scale, self.max_scale = min_scale, max_scale
+        self.th, self.tw = target_height, target_width
+
+    def __call__(self, ai: AugInput, rng: np.random.RandomState) -> AugInput:
+        scale = rng.uniform(self.min_scale, self.max_scale)
+        h, w = ai.image.shape[:2]
+        out_scale = min(self.th * scale / h, self.tw * scale / w)
+        nh, nw = max(1, int(h * out_scale + 0.5)), max(1, int(w * out_scale + 0.5))
+        return ai.apply(lambda x: resize_image(x, nh, nw),
+                        lambda x: resize_nearest(x, nh, nw))
+
+
+class FixedSizeCrop:
+    """Random crop (where larger) then pad (where smaller) to a fixed size."""
+
+    def __init__(self, crop_size, pad_value: float = 128.0, seg_pad_value: int = 0):
+        self.ch, self.cw = crop_size
+        self.pad_value = pad_value
+        self.seg_pad_value = seg_pad_value
+
+    def __call__(self, ai: AugInput, rng: np.random.RandomState) -> AugInput:
+        h, w = ai.image.shape[:2]
+        y0 = rng.randint(0, max(h - self.ch, 0) + 1)
+        x0 = rng.randint(0, max(w - self.cw, 0) + 1)
+
+        def crop_pad(x, pad_val):
+            x = x[y0:y0 + self.ch, x0:x0 + self.cw]
+            out = x.new_full((self.ch, self.cw) + tuple(x.shape[2:]), pad_val)
+            out[:x.shape[0], :x.shape[1]] = x
+            return out
+
+        ai.image = crop_pad(ai.image, self.pad_value)
+        if ai.sem_seg is not None:
+            ai.sem_seg = crop_pad(ai.sem_seg, self.seg_pad_value)
+        if ai.pan_seg is not None:
+            ai.pan_seg = crop_pad(ai.pan_seg, 0)
+        return ai
 
 
 class ResizeShortestEdge:

@@ -65,9 +65,10 @@ def resolve_device(device=None) -> torch.device:
 
 def _parts(scale: str, train_labels: Optional[Labels], with_clip_head: bool,
            backbone_in_size: Optional[tuple], num_classes: Optional[int],
-           dtype: torch.dtype):
+           dtype: torch.dtype, train_opts: dict):
     """The modules both models share, built on the current default device.
-    ``num_classes`` None means one class per training label."""
+    ``num_classes`` None means one class per training label; ``train_opts``
+    are the backbone's training options."""
     if scale not in ("tiny", "full"):
         raise ValueError(f"unknown scale {scale!r}")
     cfg = dict(TINY if scale == "tiny" else FULL)
@@ -87,7 +88,7 @@ def _parts(scale: str, train_labels: Optional[Labels], with_clip_head: bool,
     backbone = FeatureExtractorBackbone(
         captioner, out_features=("s2", "s3", "s4", "s5"),
         backbone_in_size=tuple(cfg["backbone_in_size"]),
-        projection_dim=cfg["projection_dim"], dtype=dtype)
+        projection_dim=cfg["projection_dim"], dtype=dtype, **train_opts)
     pixel_decoder = MSDeformAttnPixelDecoder(
         backbone.output_shape(), conv_dim=hidden, mask_dim=hidden,
         transformer_nheads=cfg["nheads"],
@@ -115,20 +116,28 @@ def _parts(scale: str, train_labels: Optional[Labels], with_clip_head: bool,
 def build_category_odise(scale: str = "full", *,
                          train_labels: Optional[Labels] = None,
                          with_clip_head: bool = True,
+                         use_checkpoint: bool = True,
+                         slide_training: bool = True,
+                         slide_serial: bool = True,
                          backbone_in_size: Optional[tuple] = None,
                          device=None, dtype: torch.dtype = torch.float32
                          ) -> CategoryODISE:
-    """Build the eval model on ``device`` (default CUDA) with matmuls and
+    """Build the model on ``device`` (default CUDA) with matmuls and
     convolutions in ``dtype``; norms and raw parameters stay float32.
 
     ``train_labels`` defaults to three placeholder labels at "tiny" and to
     COCO panoptic's prompt-engineered labels at "full", as in the JAX
-    package.
+    package. ``use_checkpoint``, ``slide_training`` and ``slide_serial``
+    are the backbone's training options (``FeatureExtractorBackbone``), as
+    the JAX factory takes them; the eval path ignores them. For training,
+    ``engine.train_loop.partition_params`` freezes the towers.
     """
     device = resolve_device(device)
+    train_opts = dict(use_checkpoint=use_checkpoint, slide_training=slide_training,
+                      slide_serial=slide_serial)
     with torch.device(device):
         parts, cfg = _parts(scale, train_labels, with_clip_head,
-                            backbone_in_size, None, dtype)
+                            backbone_in_size, None, dtype, train_opts)
         model = CategoryODISE(
             category_head=CategoryEmbed(cfg["hidden"], cfg["clip_dim"], dtype=dtype),
             **parts)
@@ -139,16 +148,21 @@ def build_category_odise(scale: str = "full", *,
 def build_caption_odise(scale: str = "full", *,
                         train_labels: Optional[Labels] = None,
                         with_clip_head: bool = True,
+                        use_checkpoint: bool = True,
+                        slide_training: bool = True,
+                        slide_serial: bool = True,
                         backbone_in_size: Optional[tuple] = None,
                         device=None, dtype: torch.dtype = torch.float32
                         ) -> CaptionODISE:
-    """Build the caption-supervised eval model: one (fg) class in the mask
-    decoder and a ``WordEmbed`` projection of the vocabulary. Defaults as
-    ``build_category_odise``."""
+    """Build the caption-supervised model: one (fg) class in the mask
+    decoder and a ``WordEmbed`` projection of caption words and the
+    vocabulary. Arguments as ``build_category_odise``."""
     device = resolve_device(device)
+    train_opts = dict(use_checkpoint=use_checkpoint, slide_training=slide_training,
+                      slide_serial=slide_serial)
     with torch.device(device):
         parts, cfg = _parts(scale, train_labels, with_clip_head,
-                            backbone_in_size, 1, dtype)
+                            backbone_in_size, 1, dtype, train_opts)
         model = CaptionODISE(
             word_head=WordEmbed(cfg["hidden"], cfg["clip_dim"], dtype=dtype),
             **parts)

@@ -5,7 +5,10 @@
 the VAE encoder, UNet output blocks and VAE decoder;
 ``LdmImplicitCaptionerExtractor`` conditions it on a projected CLIP image
 embedding; ``FeatureExtractorBackbone`` projects the taps to the s2..s5
-pyramid. The eval slide is the fused form: all crops in one batch.
+pyramid. The eval slide is the fused form: all crops in one batch. The
+training slide (``slide_training``, ``slide_serial``) runs the crops one at
+a time, each under activation checkpointing, so that one crop's activations
+are held at a time, as the JAX code's ``nn.scan(nn.remat(...))`` does.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...diffusion.gaussian import GaussianDiffusion, get_named_beta_schedule
 from ..clip.adapter import clip_preprocess
@@ -197,7 +201,8 @@ class LdmImplicitCaptionerExtractor(nn.Module):
     def forward(self, img: torch.Tensor) -> List[torch.Tensor]:
         B = img.shape[0]
         prep = clip_preprocess(img, self.clip_image_size).to(self.dtype)
-        image_embed, _ = self.clip_visual(prep)
+        with torch.no_grad():  # the JAX code stops the gradient here
+            image_embed, _ = self.clip_visual(prep)
         image_embed = l2_normalize(image_embed).to(self.dtype)
         prefix_embed = self.clip_project(image_embed)  # [B, 77, ctx]
         ldm = self.ldm_extractor
@@ -247,19 +252,27 @@ class BottleneckProjection(nn.Module):
 
 
 class FeatureExtractorBackbone(nn.Module):
-    """Named s2..s5 pyramid over a feature extractor (eval forward).
+    """Named s2..s5 pyramid over a feature extractor.
 
-    ``forward(img [B, 3, H, W] in [0, 1])`` -> dict name -> [B, C, H/s, W/s].
-    ``backbone_in_size`` is the (h, w) each crop is resized to.
+    ``forward(img [B, 3, H, W] in [0, 1], training)`` -> dict name ->
+    [B, C, H/s, W/s]. ``backbone_in_size`` is the (h, w) each crop is
+    resized to. In training, ``slide_training`` cuts crops of the backbone's
+    input size (else the shorter side), ``slide_serial`` runs them one at a
+    time under checkpointing, and ``use_checkpoint`` checkpoints the
+    projections.
     """
 
     def __init__(self, feature_extractor: LdmImplicitCaptionerExtractor,
                  out_features: Sequence[str] = ("s2", "s3", "s4", "s5"),
                  backbone_in_size: Tuple[int, int] = (512, 512),
                  min_stride: int = 4, max_stride: int = 32,
-                 projection_dim: int = 512, dtype=torch.float32):
+                 projection_dim: int = 512, use_checkpoint: bool = False,
+                 slide_training: bool = False, slide_serial: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.feature_extractor = feature_extractor
+        self.use_checkpoint = use_checkpoint
+        self.slide_training, self.slide_serial = slide_training, slide_serial
         self.out_features = tuple(out_features)
         self.backbone_in_size = tuple(backbone_in_size)
         self.min_stride, self.max_stride = min_stride, max_stride
@@ -296,11 +309,18 @@ class FeatureExtractorBackbone(nn.Module):
         return {n: {"channels": self.projection_dim, "stride": strides[n]}
                 for n in names}
 
-    def single_forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def single_forward(self, img: torch.Tensor, training: bool = False
+                       ) -> Dict[str, torch.Tensor]:
         input_size = tuple(img.shape[-2:])
         if input_size != self.backbone_in_size:
             img = resize(img, self.backbone_in_size, "bicubic")
         features = self.feature_extractor(img)
+        if training and self.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(self._project, input_size, *features,
+                              use_reentrant=False)
+        return self._project(input_size, *features)
+
+    def _project(self, input_size, *features) -> Dict[str, torch.Tensor]:
         names, strides, groups = self._grouping()
         out = {}
         for name, indices in zip(names, groups):
@@ -314,11 +334,20 @@ class FeatureExtractorBackbone(nn.Module):
             out[name] = acc
         return out
 
-    def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Eval slide: square crops of the shorter side, folded into the
-        batch for one forward, then averaged where they overlap."""
+    def forward(self, img: torch.Tensor, training: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        """Slide: square crops, averaged where they overlap. Eval crops the
+        shorter side and folds the crops into the batch for one forward;
+        training with ``slide_training`` crops the backbone's input size
+        and, with ``slide_serial``, runs one checkpointed crop at a time;
+        training without ``slide_training`` takes the image whole."""
+        if training and not self.slide_training:
+            return self.single_forward(img, training)
         B, _, h_img, w_img = img.shape
-        crop = stride = min(h_img, w_img)
+        if training:
+            crop = stride = min(min(self.backbone_in_size), h_img, w_img)
+        else:
+            crop = stride = min(h_img, w_img)
         h_grids = max(h_img - crop + stride - 1, 0) // stride + 1
         w_grids = max(w_img - crop + stride - 1, 0) // stride + 1
         boxes = []
@@ -326,9 +355,21 @@ class FeatureExtractorBackbone(nn.Module):
             for wi in range(w_grids):
                 y2, x2 = min(hi * stride + crop, h_img), min(wi * stride + crop, w_img)
                 boxes.append((max(y2 - crop, 0), max(x2 - crop, 0)))
-        crops = torch.cat([img[:, :, y1:y1 + crop, x1:x1 + crop]
-                           for (y1, x1) in boxes], dim=0)
-        crop_feats = self.single_forward(crops)
+        if training and self.slide_serial and len(boxes) > 1:
+            per_crop = []
+            for (y1, x1) in boxes:
+                crop_img = img[:, :, y1:y1 + crop, x1:x1 + crop]
+                if torch.is_grad_enabled():
+                    per_crop.append(checkpoint(self.single_forward, crop_img, True,
+                                               use_reentrant=False))
+                else:
+                    per_crop.append(self.single_forward(crop_img, True))
+            crop_feats = {k: torch.cat([f[k] for f in per_crop], dim=0)
+                          for k in per_crop[0]}
+        else:
+            crops = torch.cat([img[:, :, y1:y1 + crop, x1:x1 + crop]
+                               for (y1, x1) in boxes], dim=0)
+            crop_feats = self.single_forward(crops, training)
 
         out = {}
         for name, f_all in crop_feats.items():

@@ -1,9 +1,14 @@
-"""Masked-attention transformer decoder, inference path (counterpart of
-``odise_tpu/models/decoder/transformer_decoder.py`` with ``training=False``).
+"""Masked-attention transformer decoder (counterpart of
+``odise_tpu/models/decoder/transformer_decoder.py``).
 
-Intermediate layers only need the next attention mask, which is computed at
-the attention resolution against pre-resized mask features; the prediction
-heads run once, after the last layer. Aux outputs are not produced.
+``training=False`` is the inference path: intermediate layers only need the
+next attention mask, which is computed at the attention resolution against
+pre-resized mask features; the prediction heads run once, after the last
+layer, and no aux outputs are produced. ``training=True`` runs the
+prediction heads after every layer at full resolution, as the JAX code
+does: each layer's mask logits, ``PooledMaskEmbed`` and the next attention
+mask from a bilinear, antialiased downsize of the logits thresholded
+without gradient, and returns every layer but the last as aux outputs.
 """
 
 from __future__ import annotations
@@ -98,11 +103,12 @@ class _FFNLayer(nn.Module):
 
 
 class ODISEMultiScaleMaskedTransformerDecoder(nn.Module):
-    """The ODISE mask-generator decoder (inference).
+    """The ODISE mask-generator decoder.
 
     ``forward(x: list of [B, C, h, w] coarsest first, mask_features
-    [B, C, H, W])`` -> dict with pred_logits, pred_masks, mask_embed,
-    mask_pooled_features, logit_scale and an empty aux_outputs list.
+    [B, C, H, W], training)`` -> dict with pred_logits, pred_masks,
+    mask_embed, mask_pooled_features, logit_scale and aux_outputs (empty
+    unless ``training``).
     """
 
     def __init__(self, hidden_dim: int = 256, num_queries: int = 100,
@@ -142,13 +148,32 @@ class ODISEMultiScaleMaskedTransformerDecoder(nn.Module):
         am = am & ~am.all(dim=-1, keepdim=True)
         return am[:, None]
 
+    def _prediction_heads(self, output, mask_features, attn_target_hw=None):
+        """One prediction-head pass -> (class logits, mask logits, the next
+        attention mask or None, the post-mask-embed extras)."""
+        x = self.decoder_norm(output).to(output.dtype)
+        outputs_class = self.class_embed(x)
+        mask_embed = self.mask_embed_mlp(x)
+        outputs_mask = torch.einsum("bqc,bchw->bqhw", mask_embed, mask_features)
+        extra = {}
+        if self.post_mask_embed is not None:
+            extra = self.post_mask_embed(x, mask_embed, mask_features,
+                                         outputs_class, outputs_mask)
+        am = None
+        if attn_target_hw is not None:
+            with torch.no_grad():
+                am = self._threshold_attn_mask(
+                    resize(outputs_mask, attn_target_hw, "bilinear"))
+        return outputs_class, outputs_mask, am, extra
+
     def _fast_attn_mask(self, output, mask_features_lvl):
         x = self.decoder_norm(output).to(output.dtype)
         m = torch.einsum("bqc,bchw->bqhw", self.mask_embed_mlp(x),
                          mask_features_lvl)
         return self._threshold_attn_mask(m)
 
-    def forward(self, x: Sequence[torch.Tensor], mask_features: torch.Tensor):
+    def forward(self, x: Sequence[torch.Tensor], mask_features: torch.Tensor,
+                training: bool = False):
         if len(x) != self.num_feature_levels:
             raise ValueError(f"{len(x)} feature levels, expected "
                              f"{self.num_feature_levels}")
@@ -167,6 +192,9 @@ class ODISEMultiScaleMaskedTransformerDecoder(nn.Module):
         dtype = srcs[0].dtype
         output = self.query_feat[None].expand(B, -1, -1).to(dtype)
         query_pos = self.query_embed[None].expand(B, -1, -1).to(dtype)
+        if training:
+            return self._forward_train(output, query_pos, srcs, poss, sizes,
+                                       mask_features)
         mf_small = [resize(mask_features, hw, "bilinear") for hw in sizes]
 
         attn_mask = self._fast_attn_mask(output, mf_small[0])
@@ -191,6 +219,23 @@ class ODISEMultiScaleMaskedTransformerDecoder(nn.Module):
                                             outputs_class, outputs_mask))
         return out
 
+    def _forward_train(self, output, query_pos, srcs, poss, sizes, mask_features):
+        L = self.num_feature_levels
+        heads = [self._prediction_heads(output, mask_features, sizes[0])]
+        for i in range(self.dec_layers):
+            li = i % L
+            output = self.cross[i](output, srcs[li], heads[-1][2], poss[li], query_pos)
+            output = self.self_[i](output, query_pos)
+            output = self.ffn[i](output)
+            last = i == self.dec_layers - 1
+            heads.append(self._prediction_heads(
+                output, mask_features, None if last else sizes[(i + 1) % L]))
+        outs = [{"pred_logits": c, "pred_masks": m, **extra}
+                for c, m, _, extra in heads]
+        out = dict(outs[-1])
+        out["aux_outputs"] = outs[:-1]
+        return out
+
 
 class MaskFormerHead(nn.Module):
     """pixel decoder -> transformer predictor."""
@@ -200,6 +245,7 @@ class MaskFormerHead(nn.Module):
         self.pixel_decoder = pixel_decoder
         self.transformer_predictor = transformer_predictor
 
-    def forward(self, features: Dict[str, torch.Tensor]):
+    def forward(self, features: Dict[str, torch.Tensor], training: bool = False):
         mask_features, multi_scale_features = self.pixel_decoder(features)
-        return self.transformer_predictor(multi_scale_features, mask_features)
+        return self.transformer_predictor(multi_scale_features, mask_features,
+                                          training=training)

@@ -3,10 +3,13 @@
 A flax ``nn.Dense(dtype=bf16)`` or ``nn.Conv(dtype=bf16)`` casts its input
 and weights to bf16 and returns bf16; its normalisations are built with
 ``dtype=float32`` and return float32. These modules keep that policy
-explicitly (no ``torch.autocast``): ``Dense`` and ``Conv`` hold their
-weights in the compute dtype and cast their input to it, while ``LayerNorm``
-and ``GroupNorm`` hold float32 parameters, compute in float32 and return
-float32, leaving the cast back to the caller as the JAX code does.
+explicitly (no ``torch.autocast``): ``Dense`` and ``Conv`` compute in the
+dtype they are built with, casting their input and their weights to it;
+they are built holding their weights in that dtype (the eval models), and
+training holds its trainable weights in float32 as the JAX package does
+(``engine.train_loop.partition_params``). ``LayerNorm`` and ``GroupNorm``
+hold float32 parameters, compute in float32 and return float32, leaving the
+cast back to the caller as the JAX code does.
 """
 
 from __future__ import annotations
@@ -19,28 +22,36 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 class Dense(nn.Linear):
-    """``nn.Linear`` that computes in its weight dtype (flax ``nn.Dense``)."""
+    """``nn.Linear`` that computes in ``dtype`` (flax ``nn.Dense``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias, dtype=dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        cd = self.compute_dtype
+        return F.linear(x.to(cd), self.weight.to(cd), _cast(self.bias, cd))
 
 
 class Conv(nn.Conv2d):
-    """NCHW ``nn.Conv2d`` that computes in its weight dtype (flax ``nn.Conv``)."""
+    """NCHW ``nn.Conv2d`` that computes in ``dtype`` (flax ``nn.Conv``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=padding, bias=bias, dtype=dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        cd = self.compute_dtype
+        return self._conv_forward(x.to(cd), self.weight.to(cd), _cast(self.bias, cd))
 
 
 class LayerNorm(nn.Module):

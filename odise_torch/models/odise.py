@@ -1,10 +1,12 @@
-"""CategoryODISE and CaptionODISE eval paths (counterpart of
+"""CategoryODISE and CaptionODISE (counterpart of
 ``odise_tpu/models/odise.py``).
 
 Public layouts follow the JAX package: images [B, H, W, 3] in [0, 1];
 ``forward_eval_trunk`` returns mask_pred [B, Q, H, W], mask_embed,
 logit_scale and clip_mask_embed (CaptionODISE also the binary
-pred_logits); ``forward_eval_head`` returns mask_cls [B, Q, K+1].
+pred_logits); ``forward_eval_head`` returns mask_cls [B, Q, K+1];
+``forward_train`` returns the decoder's outputs with aux_outputs, ready for
+the set criterion (and, for CaptionODISE, the grounding criterion).
 """
 
 from __future__ import annotations
@@ -147,10 +149,16 @@ class _EvalODISE(nn.Module):
         """tokens [N, 77] -> pooled projected CLIP text embeds [N, D]."""
         return self.text_encoder(tokens)[0]
 
+    def forward_features(self, images: torch.Tensor, training: bool):
+        """The mask decoder's outputs for images [B, H, W, 3]."""
+        x = images.permute(0, 3, 1, 2)
+        return self.sem_seg_head(self.backbone(x, training=training),
+                                 training=training)
+
     def _trunk(self, images: torch.Tensor):
         """(trunk dict, the mask decoder's outputs) for images [B, H, W, 3]."""
         x = images.permute(0, 3, 1, 2)
-        outputs = self.sem_seg_head(self.backbone(x))
+        outputs = self.forward_features(images, training=False)
         trunk = {"mask_embed": outputs["mask_embed"],
                  "logit_scale": outputs["logit_scale"]}
         mask_pred = outputs["pred_masks"]
@@ -172,7 +180,7 @@ class _EvalODISE(nn.Module):
 
 
 class CategoryODISE(_EvalODISE):
-    """Label-supervised ODISE, eval path: ``encode_vocab``,
+    """Label-supervised ODISE: ``encode_vocab``, ``forward_train``,
     ``forward_eval_trunk``, ``forward_eval_head`` and ``forward_eval``."""
 
     def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
@@ -181,6 +189,28 @@ class CategoryODISE(_EvalODISE):
                  train_labels: Labels = (), num_queries: int = 100):
         super().__init__(backbone, sem_seg_head, "category_head", category_head,
                          text_encoder, clip_head, train_labels, num_queries)
+
+    def forward_train(self, images: torch.Tensor, text_embed_raw: torch.Tensor,
+                      labels: Optional[Labels] = None) -> Dict:
+        """Training outputs for images [B, H, W, 3]: the decoder's outputs
+        with cosine ``pred_logits`` (synonym-ensembled, null column last)
+        on the final and every aux layer. ``text_embed_raw`` [K_flat, D]
+        holds the training vocabulary's raw CLIP text embeds."""
+        labels = labels if labels is not None else self.train_labels
+        outputs = self.forward_features(images, training=True)
+        cat = self.category_head(text_embed_raw)
+        outputs.update(cat)
+
+        def with_logits(o):
+            o = dict(o)
+            o["pred_logits"] = cal_pred_logits(o["mask_embed"], cat["text_embed"],
+                                               cat["null_embed"], o["logit_scale"],
+                                               labels)
+            return o
+
+        outputs["pred_logits"] = with_logits(outputs)["pred_logits"]
+        outputs["aux_outputs"] = [with_logits(a) for a in outputs["aux_outputs"]]
+        return outputs
 
     def forward_eval_trunk(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Vocabulary-independent part: SD backbone, mask decoder, CLIP mask
@@ -210,9 +240,10 @@ class CategoryODISE(_EvalODISE):
 
 
 class CaptionODISE(_EvalODISE):
-    """Caption-supervised ODISE, eval path. Its mask classifier is binary
-    (fg, bg); the vocabulary goes through ``word_head`` into cosine logits
-    against the mask embeds and the CLIP head's ensemble, and the fg
+    """Caption-supervised ODISE. Its mask classifier is binary (fg, bg); in
+    training the caption words go through ``word_head`` for the grounding
+    loss; at eval the vocabulary goes through ``word_head`` into cosine
+    logits against the mask embeds and the CLIP head's ensemble, and the fg
     probability scales the class probabilities."""
 
     def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
@@ -226,6 +257,19 @@ class CaptionODISE(_EvalODISE):
         """[B, K, 77] -> [B, K, D] raw CLIP embeds of caption words."""
         B, K, L = word_tokens.shape
         return self.encode_vocab(word_tokens.reshape(B * K, L)).reshape(B, K, -1)
+
+    def forward_train(self, images: torch.Tensor, word_tokens: torch.Tensor) -> Dict:
+        """Training outputs: the decoder's outputs (binary pred_logits) and
+        the projected caption words ``word_embed`` [B, K, D], also on every
+        aux layer. word_tokens [B, K, 77]; the text tower runs without
+        gradient, as the JAX code stops it."""
+        outputs = self.forward_features(images, training=True)
+        with torch.no_grad():
+            word_embed_raw = self.encode_words(word_tokens)
+        outputs.update(self.word_head(word_embed_raw))
+        for aux in outputs["aux_outputs"]:
+            aux["word_embed"] = outputs["word_embed"]
+        return outputs
 
     def forward_eval_trunk(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """As CategoryODISE's, plus the binary ``pred_logits`` [B, Q, 2]."""

@@ -1,5 +1,6 @@
-"""The deformable-attention CUDA kernel against its plain PyTorch version,
-and the evaluation statistics on the card against the same on the CPU.
+"""The deformable-attention CUDA kernels (forward and backward) against
+their plain PyTorch versions, and the evaluation statistics on the card
+against the same on the CPU.
 Imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -13,7 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from odise_torch.ops.ms_deform_attn import (  # noqa: E402
-    launch, launch_plan, ms_deform_attn, ms_deform_attn_torch, resident_warps)
+    backward_plan, launch, launch_backward, launch_plan, ms_deform_attn,
+    ms_deform_attn_backward, ms_deform_attn_backward_torch, ms_deform_attn_torch,
+    resident_warps)
 
 SHAPES = [(40, 40), (6, 8), (3, 4)]
 MAIN_PATH_SHAPES = [(32, 32), (64, 64), (128, 128)]  # 1024-px image, coarsest first
@@ -229,3 +232,127 @@ def test_device_eval_runner_on_the_card_matches_the_cpu(cuda):
             assert np.array_equal(got[key], w), key
         else:
             np.testing.assert_allclose(got[key], w, rtol=1e-5, atol=0, err_msg=key)
+
+
+# Power-of-two level sizes: float32 then holds every pixel coordinate
+# loc * w - 0.5 exactly, in the kernel as in float64, so the location
+# gradient's jumps at whole pixels fall on the same side in both.
+BWD_SHAPES = [(32, 32), (8, 16), (4, 4)]
+
+
+def _check_backward(v, l, a, shapes=BWD_SHAPES, seed=0):
+    """The backward kernel against the plain backward run in float64 on the
+    same inputs: for each gradient within the float32 plain backward's own
+    error plus 1e-5 of the largest gradient (bf16: plus two bf16 ulps of
+    it). Returns the kernel's gradients."""
+    B, Lq, H = l.shape[:3]
+    g = torch.from_numpy(np.random.RandomState(seed).randn(B, Lq, H * v.shape[-1])
+                         .astype(np.float32)).cuda().to(v.dtype)
+    before = ms_deform_attn_backward.launches
+    got = ms_deform_attn_backward(v, shapes, l, a, g)
+    torch.cuda.synchronize()
+    assert ms_deform_attn_backward.launches == before + 1
+    plain = ms_deform_attn_backward_torch(v.float(), shapes, l, a.float(), g.float())
+    exact = ms_deform_attn_backward_torch(v.double(), shapes, l.double(), a.double(),
+                                          g.double())
+    rel = 1e-5 if v.dtype == torch.float32 else 2 * 2.0 ** -8
+    for x, p, e, like in zip(got, plain, exact, (v, l, a)):
+        assert x.dtype == like.dtype and x.shape == like.shape
+        tol = float((p.double() - e).abs().max()) + rel * float(e.abs().max())
+        assert float((x.double() - e).abs().max()) <= tol
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [6, 8, 32, 40])  # 6, 40: chunks padded to 8 or 16 lanes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_matches_plain(cuda, hd, dtype):
+    _check_backward(*_inputs(hd, dtype, shapes=BWD_SHAPES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_matches_plain_at_main_path_levels(cuda, dtype):
+    """Batch 2, the main path's 8 heads of 32 and its three levels."""
+    _check_backward(*_inputs(32, dtype, B=2, H=8, Lq=512, shapes=MAIN_PATH_SHAPES),
+                    MAIN_PATH_SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,points", [(2, 4), (3, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_matches_plain_other_counts(cuda, levels, points, dtype):
+    shapes = BWD_SHAPES[:levels]
+    _check_backward(*_inputs(32, dtype, P=points, shapes=shapes), shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [6, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_far_out_is_exactly_zero(cuda, hd, dtype):
+    """Samples at +-1e6 and +-3e9: every gradient of a sample out there is
+    exactly 0, and the value gets nothing from it."""
+    v, l, a = _inputs(hd, dtype, seed=1, shapes=BWD_SHAPES)
+    far = np.random.RandomState(2).choice([1e6, -1e6, 3e9, -3e9], size=l.shape)
+    l_far = torch.from_numpy(far.astype(np.float32)).cuda()
+    g = torch.ones((l.shape[0], l.shape[1], l.shape[2] * hd), device="cuda", dtype=dtype)
+    for grad in ms_deform_attn_backward(v, BWD_SHAPES, l_far, a, g):
+        assert not bool(grad.any())
+    l_one = l.clone()
+    l_one[:, :, :, 1] = l_far[:, :, :, 1]
+    _, g_loc, g_attn = _check_backward(v, l_one, a)
+    assert not bool(g_loc[:, :, :, 1].any()) and not bool(g_attn[:, :, :, 1].any())
+
+
+@pytest.mark.cuda
+def test_backward_rejects_what_it_cannot_take(cuda):
+    v, l, a = _inputs(32, torch.bfloat16, shapes=BWD_SHAPES)
+    g = torch.zeros((v.shape[0], l.shape[1], l.shape[2] * 32), device="cuda",
+                    dtype=torch.bfloat16)
+    before = ms_deform_attn_backward.launches
+    with pytest.raises(TypeError):
+        ms_deform_attn_backward(v, BWD_SHAPES, l, a, g.float())  # grad_out in the value's dtype
+    with pytest.raises(ValueError):
+        ms_deform_attn_backward(v, BWD_SHAPES, l, a, g[:, :-1])
+    for i in (0, 3):  # 16-byte chunks need value and grad_out 16-byte aligned
+        args = [v, l, a, g]
+        args[i] = _misaligned(args[i])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            launch_backward(args[0], BWD_SHAPES, args[1], args[2], args[3])
+    plan = backward_plan(*l.shape[:3], 32, torch.bfloat16)
+    assert (plan.threads_per_head, plan.lanes_per_head) == (4, 4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launch_backward(v, BWD_SHAPES, l, a, g, plan._replace(blocks=plan.blocks - 1))
+    with pytest.raises(RuntimeError, match="launch failed"):  # not whole warps
+        launch_backward(v, BWD_SHAPES, l, a, g, plan._replace(block_threads=96 + 16,
+                                                              blocks=10 ** 6))
+    assert ms_deform_attn_backward.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_autograd_function_launches_both_kernels(cuda, dtype):
+    """Through autograd on CUDA tensors, ms_deform_attn launches the forward
+    kernel and its backward the backward kernel, with the gradients
+    ms_deform_attn_backward gives."""
+    v, l, a = _inputs(32, dtype, H=8, shapes=MAIN_PATH_SHAPES)
+    leaves = [t.clone().requires_grad_() for t in (v, l, a)]
+    f0, b0 = ms_deform_attn.launches, ms_deform_attn_backward.launches
+    out = ms_deform_attn(leaves[0], MAIN_PATH_SHAPES, leaves[1], leaves[2])
+    g = torch.randn(out.shape, device="cuda").to(dtype)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (ms_deform_attn.launches - f0, ms_deform_attn_backward.launches - b0) == (1, 1)
+    want = ms_deform_attn_backward(v, MAIN_PATH_SHAPES, l, a, g)
+    for leaf, w in zip(leaves, want):
+        # atomics add in another order each run: float32 rounding apart
+        tol = 1e-5 * float(w.float().abs().max()) if dtype == torch.float32 else \
+            2 * 2.0 ** -8 * float(w.float().abs().max())
+        assert float((leaf.grad.float() - w.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_resident_warps(cuda, dtype):
+    plan = backward_plan(2, 21504, 8, 32, dtype)
+    assert 4 <= resident_warps(dtype, plan) <= 64

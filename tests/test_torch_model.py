@@ -176,8 +176,25 @@ def test_full_structure_matches_jax_manifest():
 def test_entry_point_needs_cuda_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
+    from odise_torch.data.dataset_mapper import COCOPanopticDatasetMapper
+    from odise_torch.data.loader import build_train_loader
+    from odise_torch.data.synthetic import make_shapes_records
+    from odise_torch.model_zoo.factory import build_caption_odise
+
     with pytest.raises(RuntimeError, match="CUDA"):
         build_category_odise("tiny")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_category_odise("tiny", use_checkpoint=True, slide_training=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_caption_odise("tiny", with_clip_head=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        COCOPanopticDatasetMapper(image_size=64)
+    with pytest.raises(RuntimeError, match="CUDA"):  # its default mapper needs the card
+        next(build_train_loader(make_shapes_records(1, size=32), lambda r, rng: (
+            COCOPanopticDatasetMapper(image_size=32)(r, rng)), 1))
+    cpu = COCOPanopticDatasetMapper(image_size=32, device="cpu")
+    batch = next(build_train_loader(make_shapes_records(1, size=32), cpu, 1))
+    assert batch["image"].device.type == "cpu"
     # FULL trains on COCO panoptic's prompt-engineered labels by default, as
     # the JAX factory does
     from odise_tpu.data.build import get_openseg_labels
@@ -192,8 +209,9 @@ def test_port_imports_no_jax():
     """With jax, flax, odise_tpu, PIL and cv2 unimportable (the card's
     machine has neither image library): import every odise_torch module,
     build TINY CategoryODISE on the CPU and run forward_eval, evaluate it on
-    one in-memory synthetic record, and build TINY CaptionODISE.
-    chip_smoke.py must not import them either."""
+    one in-memory synthetic record, build TINY CaptionODISE, and take one
+    TINY CategoryODISE train step (mapper, loader, partition, optimizer,
+    Trainer). chip_smoke.py must not import them either."""
     script = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "flax", "optax", "odise_tpu", "PIL", "cv2"):
@@ -223,6 +241,20 @@ def test_port_imports_no_jax():
         assert r["images"] == 1 and r["host_fallback_images"] == 0
         caption = build_caption_odise("tiny", device="cpu")
         assert type(caption).__name__ == "CaptionODISE"
+        from odise_torch.data.dataset_mapper import COCOPanopticDatasetMapper
+        from odise_torch.data.loader import build_train_loader
+        from odise_torch.engine import (Trainer, make_category_train_step, make_optimizer,
+                                        partition_params)
+        from odise_torch.losses import CriterionConfig
+        trainable, _ = partition_params(model)
+        step = make_category_train_step(model, make_optimizer(trainable),
+                                        CriterionConfig(num_classes=3, num_points=16),
+                                        text, (("a",), ("b",), ("c",)))
+        mapper = COCOPanopticDatasetMapper(image_size=64, max_instances=3, device="cpu")
+        trainer = Trainer(step, build_train_loader(make_shapes_records(2, size=48), mapper, 1),
+                          torch.Generator().manual_seed(0))
+        trainer.train(0, 1)
+        assert trainer.metrics_history[0]["grad_norm"] > 0
         assert not any(k.split(".")[0] in ("jax", "flax", "odise_tpu", "PIL", "cv2")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")

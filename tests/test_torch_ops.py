@@ -20,7 +20,7 @@ from odise_tpu.ops.pallas.ms_deform_attn_kernel import _pallas_forward  # noqa: 
 from odise_torch.models import helper  # noqa: E402
 from odise_torch.models.resize import resize  # noqa: E402
 from odise_torch.ops.ms_deform_attn import (  # noqa: E402
-    launch_plan, ms_deform_attn, ms_deform_attn_torch)
+    backward_plan, launch_plan, ms_deform_attn, ms_deform_attn_torch)
 
 # one level above the JAX package's 1024-row matmul cutoff, two below
 SHAPES = [(40, 40), (6, 8), (3, 4)]
@@ -110,6 +110,32 @@ def test_launch_plan(case):
     assert (plan.chunk_elems, plan.chunk_bytes, plan.threads_per_head,
             plan.specialised, plan.warps) == (elems, nbytes, per_head, specialised, warps)
     assert plan.threads == B * Lq * H * per_head
+    bt = plan.block_threads
+    assert bt % 32 == 0 and plan.blocks * bt >= plan.threads > (plan.blocks - 1) * bt
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Lq, heads, head_dim, dtype) -> (chunk elements, chunks a head,
+    # lanes a head); None: refused
+    ((2, 21504, 8, 32, torch.bfloat16), (8, 4, 4)),  # FULL main path
+    ((2, 64, 8, 8, torch.float32), (4, 2, 2)),       # TINY
+    ((1, 10, 2, 6, torch.float32), (1, 6, 8)),       # 24 B heads, padded
+    ((1, 10, 2, 40, torch.bfloat16), (8, 5, 8)),     # 80 B heads, padded
+    ((1, 10, 2, 33, torch.float32), None),           # 33 one-element chunks
+    ((1, 10, 2, 264, torch.bfloat16), None),         # 33 chunks of 16 B
+], ids=["full_bf16", "tiny_f32", "hd6_f32", "hd40_bf16", "hd33_f32", "hd264_bf16"])
+def test_backward_plan(case):
+    """The backward's threads: the forward's chunks, a head's padded to a
+    power of two lanes of one warp; more than 32 chunks are refused."""
+    (B, Lq, H, hd, dtype), want = case
+    if want is None:
+        with pytest.raises(ValueError, match="at most 32 chunks"):
+            backward_plan(B, Lq, H, hd, dtype)
+        return
+    plan = backward_plan(B, Lq, H, hd, dtype)
+    assert (plan.chunk_elems, plan.threads_per_head, plan.lanes_per_head) == want
+    assert plan.chunk_elems == launch_plan(B, Lq, H, hd, dtype, 3, 4).chunk_elems
+    assert plan.threads == B * Lq * H * plan.lanes_per_head
     bt = plan.block_threads
     assert bt % 32 == 0 and plan.blocks * bt >= plan.threads > (plan.blocks - 1) * bt
 
