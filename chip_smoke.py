@@ -59,9 +59,20 @@ Phases, each fatal on failure:
      timed cold and warm against its bound and the plain version; one TINY
      step on the card against the same step on the CPU, then again with
      two faults planted in the backward kernel, each of which that check
-     must fail; two FULL CaptionODISE steps with the grounding loss.
-Phase 1 also builds the backward kernel and prints its resident warps;
-phase 2 also holds it against the plain backward run in float64.
+     must fail; two FULL CaptionODISE steps with the grounding loss. The
+     backward kernel is timed on the training path's inputs and on a fresh
+     encoder layer's (reference points plus the ring offsets a new
+     MSDeformAttn starts from), each with its global reductions and the
+     share of corners it summed on chip.
+Phase 1 also builds the backward kernel and prints its launch plan, shared
+memory and resident warps; phase 2 also holds it against the plain backward
+run in float64, at the main path's levels on random, out-of-range,
+pixel-centre, fresh-encoder and widely spread locations (where most corners
+miss their block's window), at other level and point counts, and far out.
+Where the backward summed the value gradient (global reductions, corners
+summed on chip per level, rows flushed) is counted on the card by the
+kernel's counting instantiation (``count_backward``) and must equal the
+host's count from the locations and the plan (``backward_counts``).
 Each phase prints its time. Then it prints the ``kernels`` JSON line and,
 last, the ``ok`` line.
 It needs a card and the repository around it, and exits non-zero without.
@@ -103,9 +114,13 @@ TRAIN_STEPS, CAPTION_STEPS = 5, 2
 # loc * w - 0.5 of a float32 location exactly, so the location gradient's
 # jumps at whole pixels fall on the same side in float32 and float64
 GENERIC = [(16, 32), (8, 16)]
+# power-of-two levels whose finest (65,536 rows) is larger than the backward
+# kernel's window (6,880 rows in bf16), so that widely spread samples miss it
+SPREAD = [(32, 128), (64, 256), (128, 512)]
 BWD_KERNEL = "ms_deform_attn_bwd_kernel"
-# its template arguments: element type, chunk width in elements
-BWD_KERNEL_ARGS = re.compile(BWD_KERNEL + r"<(\w+), (\d+)>")
+# its template arguments: element type, chunk width in elements, of the
+# production instantiation (not the one that counts)
+BWD_KERNEL_ARGS = re.compile(BWD_KERNEL + r"<(\w+), (\d+), false>")
 # phase 7's records: (rows, cols) cut from the 640-px one, after the 1024-px one
 CUTS = [(640, 640), (480, 640), (640, 480), (384, 640), (256, 640)]
 KERNEL = "ms_deform_attn_fwd_kernel"
@@ -147,30 +162,65 @@ def build_kernels():
                     f"{'3 levels of 4 points' if plan.specialised else 'any counts'}>: "
                     f"{resident_warps(dtype, plan)} resident warps per SM "
                     f"in blocks of {plan.block_threads}")
-            plan = backward_plan(1, 1, HEADS, head_dim, dtype)
+            plan = backward_plan(2, sum(h * w for h, w in SHAPES), HEADS, head_dim, dtype,
+                                 POINTS)
             log(f"ms_deform_attn backward <{str(dtype)[6:]}, chunk {plan.chunk_elems}> "
                 f"({plan.threads_per_head} chunks a head on {plan.lanes_per_head} lanes): "
                 f"{resident_warps(dtype, plan)} resident warps per SM in blocks of "
-                f"{plan.block_threads}")
+                f"{plan.block_threads}, {plan.queries_per_block} queries a block, a window "
+                f"of {plan.window_rows} rows, {plan.smem_bytes} bytes of shared memory; "
+                f"{plan.blocks} blocks at batch 2")
+
+
+def reference_points(shapes, device="cuda"):
+    """The encoder's reference points: every pixel centre of every level,
+    normalised, levels in order (the pixel decoder's)."""
+    ref = []
+    for h, w in shapes:
+        ys = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+        xs = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+        yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+        ref.append(torch.stack([xx, yy], -1).reshape(h * w, 2))
+    return torch.cat(ref)
+
+
+def ring_offsets(shapes, points):
+    """The sampling-offset bias a fresh MSDeformAttn starts from: head h on
+    rings of 1 to ``points`` pixels in direction 2 pi h / heads, in each
+    level's pixels; [heads, levels, points, 2]."""
+    from odise_torch.models.decoder.pixel_decoder import MSDeformAttn
+
+    mod = MSDeformAttn(HEADS * HEAD_DIM, len(shapes), HEADS, points)
+    return mod.sampling_offsets.bias.detach().reshape(HEADS, len(shapes), points, 2)
 
 
 def deform_inputs(kind, dtype, gen, shapes=SHAPES, batch=1, points=POINTS):
     """Deformable-attention inputs on the card: 8 heads of 32 over every
     query of the levels ``shapes``, at random, out-of-range or pixel-centre
-    locations."""
+    locations; or at the encoder's reference points plus the ring offsets
+    a fresh MSDeformAttn starts from (``encoder_start``), or plus offsets of
+    64 pixels' standard deviation, which scatter a block's samples beyond
+    its window at a level larger than the window (``spread``)."""
     Lq = sum(h * w for h, w in shapes)
     L = len(shapes)
     value = torch.randn((batch, Lq, HEADS, HEAD_DIM), generator=gen, device="cuda")
     shape = (batch, Lq, HEADS, L, points, 2)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
+                      device="cuda")[None, None, None, :, None, :]
     if kind == "random":
         loc = torch.rand(shape, generator=gen, device="cuda")
     elif kind == "out_of_range":
         loc = torch.rand(shape, generator=gen, device="cuda") * 2.0 - 0.5
-    else:  # pixel centres: x = loc * w - 0.5 is an integer, edges included
-        wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
-                          device="cuda")[None, None, None, :, None, :]
+    elif kind == "pixel_centres":  # x = loc * w - 0.5 is an integer, edges included
         idx = torch.floor(torch.rand(shape, generator=gen, device="cuda") * wh)
         loc = (idx + 0.5) / wh
+    else:
+        ref = reference_points(shapes)[None, :, None, None, None, :]
+        if kind == "encoder_start":
+            offsets = ring_offsets(shapes, points).cuda()[None, None]
+        else:  # spread
+            offsets = torch.randn(shape, generator=gen, device="cuda") * 64.0
+        loc = (ref + offsets / wh).expand(shape).contiguous()
     logits = torch.randn((batch, Lq, HEADS, L * points), generator=gen, device="cuda")
     attn = torch.softmax(logits, -1).reshape(batch, Lq, HEADS, L, points)
     return value.to(dtype), loc, attn.to(dtype)
@@ -209,13 +259,37 @@ def check_kernel(value, loc, attn, label, shapes=SHAPES):
     return err
 
 
+def backward_counts_line(value, loc, attn, grad_out, shapes):
+    """What the backward kernel did with the value gradient on these inputs
+    under its launch plan, counted on the card by the kernel's counting
+    instantiation (``count_backward``) and held to the host's count from the
+    locations and the plan (``backward_counts``): printed, and returned."""
+    from odise_torch.ops.ms_deform_attn import backward_counts, backward_plan, count_backward
+
+    B, Lq, H = loc.shape[:3]
+    plan = backward_plan(B, Lq, H, value.shape[-1], value.dtype, loc.shape[4])
+    counts = count_backward(value, shapes, loc, attn, grad_out, plan)
+    host = backward_counts(loc, shapes, plan)
+    if counts != host:
+        raise AssertionError(f"the backward kernel counted {counts}, the host {host}")
+    log(f"  value-gradient reductions, counted by the kernel (the host's count "
+        f"agrees): {counts.global_reductions:,} global "
+        f"({counts.direct_reductions:,} with every corner reduced in global memory, "
+        f"{counts.direct_reductions / max(counts.global_reductions, 1):.2f}x); corners "
+        f"kept in shared memory per level " + ", ".join(
+            f"{s:.4f}" for s in counts.in_shared_share)
+        + f"; rows flushed per level {list(counts.flushed_rows)}")
+    return counts
+
+
 def check_backward(value, loc, attn, label, shapes=SHAPES, gen=None):
     """The backward kernel and the plain backward in float32, each against
     the plain backward in float64 on the same inputs and a random grad_out.
     For each gradient the kernel may be off float64 by the float32 plain
     version's own error plus 1e-5 of the largest gradient (bf16: plus two
-    bf16 ulps of it, the kernel rounds its float32 sums once). Returns the
-    kernel's largest error and its gradients."""
+    bf16 ulps of it, the kernel rounds its float32 sums once). Prints where
+    the kernel summed the value gradient (``backward_counts_line``).
+    Returns the kernel's largest error and that count."""
     from odise_torch.ops.ms_deform_attn import (ms_deform_attn_backward,
                                                 ms_deform_attn_backward_torch)
 
@@ -241,7 +315,7 @@ def check_backward(value, loc, attn, label, shapes=SHAPES, gen=None):
             raise AssertionError(f"backward kernel disagrees with its plain version "
                                  f"[{label}, grad {name}]")
         worst = max(worst, err)
-    return worst, got
+    return worst, backward_counts_line(value, loc, attn, grad_out, shapes)
 
 
 def check_backward_far_out(dtype, gen):
@@ -782,20 +856,44 @@ def backward_bound_ms(value, loc, attn, shapes=SHAPES):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def backward_on_inputs(layer0, label):
-    """The backward kernel on the inputs the training path gave the first
-    encoder layer (its first call), with a random grad_out: held against the
-    plain backward, timed cold and warm beside the plain backward, and its
-    bound."""
+def training_inputs(layer0):
+    """The deformable-attention inputs the training path gave the first
+    encoder layer (its first call)."""
+    src, pos, ref_points, levels = layer0.first[tuple(SHAPES)]
+    with torch.no_grad():
+        return layer0.layer.self_attn.sampling_inputs((src + pos).detach(), ref_points,
+                                                      src.detach(), levels)
+
+
+def encoder_start_inputs(batch=2):
+    """The first encoder layer's deformable-attention inputs in a model at
+    the start of training: a fresh bf16 MSDeformAttn (seeded; offsets on
+    its rings of 1 to 4 pixels, uniform attention weights) at the encoder's
+    reference points of a 1024-px image, on random query and value features."""
+    from odise_torch.models.decoder.pixel_decoder import MSDeformAttn
+
+    torch.manual_seed(0)
+    mod = MSDeformAttn(HEADS * HEAD_DIM, len(SHAPES), HEADS, POINTS,
+                       dtype=torch.bfloat16).cuda()
+    Lq = sum(h * w for h, w in SHAPES)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    query, value = (torch.randn((batch, Lq, HEADS * HEAD_DIM), generator=gen,
+                                device="cuda").to(torch.bfloat16) for _ in range(2))
+    ref = reference_points(SHAPES)[None, :, None, :].expand(batch, Lq, len(SHAPES), 2)
+    with torch.no_grad():
+        return mod.sampling_inputs(query, ref, value, SHAPES)
+
+
+def backward_on_inputs(v, loc, attn, label):
+    """The backward kernel on these inputs with a random grad_out: held
+    against the plain backward, timed cold and warm beside the plain
+    backward, its bound, and where it summed the value gradient."""
     from odise_torch.ops.ms_deform_attn import (launch_backward,
                                                 ms_deform_attn_backward_torch)
 
-    src, pos, ref_points, levels = layer0.first[tuple(SHAPES)]
     with torch.no_grad():
-        v, loc, attn = layer0.layer.self_attn.sampling_inputs(
-            (src + pos).detach(), ref_points, src.detach(), levels)
         gen = torch.Generator(device="cuda").manual_seed(5)
-        err, _ = check_backward(v, loc, attn, label, SHAPES, gen)
+        err, counts = check_backward(v, loc, attn, label, SHAPES, gen)
         grad_out = torch.randn((loc.shape[0], loc.shape[1], v.shape[2] * v.shape[3]),
                                generator=gen, device="cuda").to(v.dtype)
         cold = time_cold(lambda: launch_backward(v, SHAPES, loc, attn, grad_out))
@@ -807,7 +905,9 @@ def backward_on_inputs(layer0, label):
         f"kernel {cold:.4f} ms cold, {warm:.4f} ms warm, plain {plain:.4f} ms, bound "
         f"{bound:.4f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=cold, warm_ms=warm, plain_ms=plain, bound_ms=bound,
-                bound_by=bound_by)
+                bound_by=bound_by, global_reductions=counts.global_reductions,
+                direct_reductions=counts.direct_reductions,
+                in_shared_share=list(counts.in_shared_share))
 
 
 def train_loader(size, with_captions, seed):
@@ -950,12 +1050,15 @@ def train_category(labels):
     log(f"deform attn in one profiled train step: forward {sum(fwd):.4f} ms over "
         f"{len(fwd)} launches ({sum(fwd) / len(fwd):.4f} ms each), backward "
         f"{sum(bwd):.4f} ms over {len(bwd)} launches ({sum(bwd) / len(bwd):.4f} ms each)")
-    bwd_numbers = backward_on_inputs(layer0, "training-path inputs, bfloat16")
+    bwd_numbers = backward_on_inputs(*training_inputs(layer0), "training-path inputs, bfloat16")
     del layer0, model, trainable, frozen, opt, trainer, timed
     torch.cuda.empty_cache()
+    start_numbers = backward_on_inputs(*encoder_start_inputs(),
+                                       "a fresh encoder layer's inputs, bfloat16")
     return dict(launches=launches, peak_gib=peak, first_ms=first_ms, warm_ms=warm_ms,
                 bwd_vector_bytes=bwd_vector_bytes, fwd_in_place_ms=sum(fwd) / len(fwd),
-                bwd_in_place_ms=sum(bwd) / len(bwd), bwd=bwd_numbers)
+                bwd_in_place_ms=sum(bwd) / len(bwd), bwd=bwd_numbers,
+                bwd_encoder_start=start_numbers)
 
 
 class PointDraws:
@@ -1138,7 +1241,8 @@ def main():
               file=sys.stderr)
         return 1
     from odise_torch.model_zoo.factory import build_category_odise
-    from odise_torch.ops.ms_deform_attn import launch, launch_plan, ms_deform_attn
+    from odise_torch.ops.ms_deform_attn import (backward_plan, launch, launch_plan,
+                                                ms_deform_attn)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1166,14 +1270,22 @@ def main():
     Lq = sum(h * w for h, w in WIDE)
     plan = launch_plan(1, Lq, HEADS, HEAD_DIM, torch.bfloat16, len(WIDE), POINTS)
     log(f"launch plan at {Lq} queries (1024x2560 bucket, bf16): {plan}, {plan.warps} warps")
-    # the backward kernel: the main path's levels at batch 2, a generic
-    # level and point count, and far-out locations
+    # the backward kernel: the main path's levels at batch 2 (among them
+    # where a fresh encoder samples), samples spread so wide that most
+    # corners of a level larger than the window miss it, a generic level and
+    # point count, and far-out locations
     bwd_errs = []
     for dtype in (torch.float32, torch.bfloat16):
-        for kind in ("random", "out_of_range", "pixel_centres"):
+        for kind in ("random", "out_of_range", "pixel_centres", "encoder_start"):
             bwd_errs.append(check_backward(
                 *deform_inputs(kind, dtype, gen, batch=2),
                 f"{SHAPES}, batch 2, {kind}, {str(dtype)[6:]}", SHAPES, gen)[0])
+        err, counts = check_backward(
+            *deform_inputs("spread", dtype, gen, SPREAD, batch=2),
+            f"{SPREAD}, batch 2, spread, {str(dtype)[6:]}", SPREAD, gen)
+        bwd_errs.append(err)
+        if not counts.in_shared_share[-1] < 0.5:
+            raise AssertionError("the spread case summed most corners on chip")
         bwd_errs.append(check_backward(
             *deform_inputs("random", dtype, gen, GENERIC, batch=2, points=3),
             f"{GENERIC}, 3 points, batch 2, {str(dtype)[6:]}", GENERIC, gen)[0])
@@ -1307,6 +1419,8 @@ def main():
     phase_done(8)
 
     log(card_line())
+    bwd_plan = backward_plan(2, sum(h * w for h, w in SHAPES), HEADS, HEAD_DIM, torch.bfloat16,
+                             POINTS)
     print(json.dumps({"kernels": [{
         "name": "ms_deform_attn", "route": "cuda",
         "source": "odise_torch/csrc/ms_deform_attn.cu",
@@ -1328,7 +1442,14 @@ def main():
         "in_place_ms": train["bwd_in_place_ms"], "vector_bytes": train["bwd_vector_bytes"],
         "plain_ms": train["bwd"]["plain_ms"],
         "bound_ms": train["bwd"]["bound_ms"], "bound_by": train["bwd"]["bound_by"],
-        "library_ms": None, "train_batch": 2,
+        "library_ms": None, "smem_bytes": bwd_plan.smem_bytes,
+        "global_reductions": train["bwd"]["global_reductions"],
+        "direct_reductions": train["bwd"]["direct_reductions"],
+        "in_shared_share": train["bwd"]["in_shared_share"],
+        "encoder_start": {k: train["bwd_encoder_start"][k] for k in (
+            "ms", "warm_ms", "plain_ms", "bound_ms", "global_reductions",
+            "direct_reductions", "in_shared_share")},
+        "train_batch": 2,
         "train_first_step_ms": train["first_ms"], "train_warm_step_ms": train["warm_ms"],
         "train_peak_gib": train["peak_gib"]}]}),
         flush=True)

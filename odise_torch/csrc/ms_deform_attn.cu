@@ -71,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 namespace {
 
 constexpr int kMaxLevels = 8;
@@ -120,6 +122,9 @@ struct Chunk<float, 4> {
   static __device__ __forceinline__ Raw load(const float* p) {
     return __ldg(reinterpret_cast<const uint4*>(p));
   }
+  static __device__ __forceinline__ Raw load_shared(const float* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
   static __device__ __forceinline__ Raw keep(bool k, Raw r) {
     return k ? r : make_uint4(0u, 0u, 0u, 0u);
   }
@@ -145,6 +150,9 @@ struct Chunk<__nv_bfloat16, 8> {
   using Raw = uint4;
   static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
     return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ Raw load_shared(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint4*>(p);
   }
   static __device__ __forceinline__ Raw keep(bool k, Raw r) {
     return k ? r : make_uint4(0u, 0u, 0u, 0u);
@@ -178,6 +186,7 @@ template <typename T>
 struct Chunk<T, 1> {
   using Raw = float;
   static __device__ __forceinline__ Raw load(const T* p) { return to_f32(*p); }
+  static __device__ __forceinline__ Raw load_shared(const T* p) { return to_f32(*p); }
   static __device__ __forceinline__ Raw keep(bool k, Raw r) { return k ? r : 0.f; }
   static __device__ __forceinline__ void fma(float w, Raw r, float* acc) {
     acc[0] = fmaf(w, r, acc[0]);
@@ -326,161 +335,458 @@ ms_deform_attn_fwd_kernel(const T* __restrict__ value, const float* __restrict__
   C::store(out + t * VEC, acc);
 }
 
-// Backward. Replaces the VJP of the TPU kernel's custom_vjp
-// (odise_tpu/ops/pallas/ms_deform_attn_kernel.py `_bwd`, which is jax.vjp of
+// Backward. Replaces the VJP of the TPU kernel's custom_vjp,
+// `_bwd` in odise_tpu/ops/pallas/ms_deform_attn_kernel.py:285 (jax.vjp of
 // the XLA `_hybrid_impl`). For the forward's out[b,q,h,c] it computes, from
 // grad_out g[b,q,h,c]:
-//   grad_value[b, corner, h, c]  += a * w_corner * g            (atomics)
+//   grad_value[b, corner, h, c]  += a * w_corner * g
 //   grad_attn[b,q,h,l,p]          = sum_c g * bilinear(value_l, loc)
 //   grad_loc[b,q,h,l,p,(x, y)]    = a * (w_l, h_l) * sum_c g * d bilinear / d(fx, fy)
 // where fx = x - floor(x), x = loc_x * w_l - 0.5 (so d/d loc_x carries w_l),
 // and a corner outside the level is a zero value: it adds exactly 0 to
 // every gradient, as in the forward.
 //
-// What bounds it on an H100. At the main path's shapes (B = 2, 21504
-// queries, 8 heads of 32 bf16 channels, 3 levels of 4 points) it must read
-// value, locations, weights and grad_out once and write the three gradients
-// once, about 149 MB, 0.044 ms at 3.35 TB/s. Its float32 arithmetic is less:
-// the weight gradient and both location sums follow from the four corner
-// dot products sum_c g_c v_kc (8 operations per sample and channel), and
-// the value gradient takes a multiply and an add per inside corner and
-// channel, about 2.1 GFLOP or 0.031 ms at 67 TFLOP/s (chip_smoke.py's
-// backward_bound_ms counts both on the run's own inputs). So the floor is
-// memory traffic. But grad_value is a scatter: each of the
-// 2 * 21504 * 8 * 12 samples adds to 4 corner rows of 32 channels, about
-// 0.53 G float32 atomic adds into a 22 MB scratch that L2 holds, so the
-// atomics' throughput in L2, not device memory, is expected to decide; one
-// red.global.add.v4.f32 per 4 channels instead of one scalar atomicAdd per
-// channel cut the kernel's warm time 3.7x on an NVIDIA H100 80GB HBM3 at
-// 700 W (chip_smoke.py phase 8 before and after; PERF.md), which points the
-// same way.
+// What bounds it on an H100. At the training path's shapes (B = 2, 21504
+// queries, 8 heads of 32 bf16 channels, levels 32^2, 64^2, 128^2 of 4
+// points) it must read value, locations, weights and grad_out once and
+// write the three gradients once: 148.6 MB, 0.0444 ms at 3.35 TB/s. Its
+// float32 arithmetic is less (2.06 GFLOP, 0.031 ms at 67 TFLOP/s;
+// chip_smoke.py's backward_bound_ms counts both on the run's own inputs).
+// So the floor is bytes. But grad_value is a scatter: each of the 4.13 M
+// samples adds 32 float32 values to each of its 4 corner rows. Done in
+// device memory with one red.global.add.v4.f32 per 4 channels, that is
+// 132.1 M reductions into a 44 MB float32 scratch, and per head and level
+// the 344,064 corner hits land on 1,024, 4,096 and 16,384 rows of the
+// 32^2, 64^2 and 128^2 levels: 336, 84 and 21 reductions on each row, which
+// L2 serialises. A kernel that did so took 1.53 ms in place, 36x the bound,
+// and its time followed the count of reductions (a quarter of the
+// instructions, scalar atomics to v4, made it 4x faster).
 //
-// Design (simple first). The forward's thread layout: one thread per 16 B
-// chunk (or one element) of one head of one query; the thread loads its
-// chunk of grad_out once, then walks the samples one at a time. Per sample
-// it loads the 4 corner chunks (clamped rows and columns, outside corners
-// zeroed by a select, as in the forward), forms its chunk's partial sums
-// for the weight and the two location gradients and adds a * w_corner * g
-// into the float32 scratch of each inside corner, 4 channels to one vector
-// reduction where the chunk holds a multiple of 4 (else one atomicAdd per
-// element). A head owns `lanes` consecutive threads of one warp, its chunk
-// count rounded up to a power of two (4 for bf16 at head_dim 32, no more
-// than 32); the three partial sums reduce over them with __shfl_xor_sync
-// and the head's first thread stores them. Lanes past a head's last chunk,
-// and past the last head, take part in the shuffles with zeros.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kBlockThreads)
+// The design: sum the value gradient on chip, so that global reductions
+// are only a flush.
+//  - A block owns one (batch, head) and a run of `queries` consecutive
+//    queries (256 on the main path), and first copies the run's grad_out of
+//    that head into shared memory. A thread owns a 16 B chunk (or one
+//    element) of the head, as in the forward, and walks the run in passes
+//    of blockDim / lanes queries. Per sample it forms the four corners' dot
+//    products with grad_out over its chunk (4 FMAs a channel); a head's
+//    chunks, padded to a power of two lanes of one warp, sum them by
+//    __shfl_xor_sync, and the weight and location gradients follow from
+//    the four sums (the bound's 8 operations a sample and channel).
+//  - The block takes the box (rows and columns) of every corner of its
+//    run's samples that lies inside each level, in one pass over the
+//    locations before the first level: a min/max, __reduce_*_sync per warp,
+//    shared atomics across warps. So the window is right for any query
+//    order and any offsets. Then levels go one after another, each in three
+//    steps between barriers. (1) The block empties the lists of a window of
+//    at most `window_rows` rows over the level's box (6,880 on the main
+//    path, as many as leave an SM room for 3 blocks: the 32^2 and 64^2
+//    levels fit whole); a box larger than that is cut to its first rows
+//    (or, wider than the window, to its first columns of its first row).
+//    (2) For each corner in the window one of the query's lanes links
+//    (query, a * w) into that row's list, in the entry the sample and
+//    corner own: one native integer atomicExch on the row's head, no float
+//    atomic. A corner outside the window goes straight to the float32
+//    scratch with a global vector reduction: one path, no fallback.
+//    (3) One thread per chunk of each touched row walks the row's list,
+//    sums a * w * g in registers (g from shared memory) and adds the sum to
+//    the scratch once: one red.global.add.v4.f32 per 4 channels.
+//    In the encoder a run of queries is a strip of pixels of one level and
+//    its samples lie within a few pixels of the strip at each level
+//    (reference points at pixel centres, offsets initialised on rings of 1
+//    to 4 pixels), so the box is small, and a row takes one reduction from
+//    each block whose window it is in instead of one for each corner.
+//  - Why lists and not a window of float sums: sm_90 has no shared-memory
+//    float add; atomicAdd on a shared float compiles to a compare-and-swap
+//    loop (ATOMS.CAST.SPIN), 32 of them per corner, run one after another.
+//    A first version summed that way and was no faster than reducing every
+//    corner in device memory, though its global reductions fell 8x.
+//  - Two points issue their 8 corner loads together (an odd last point
+//    masks the other); at most 85 registers a thread, so that an SM holds
+//    3 blocks of 256 threads. Locations are tested in float before any int
+//    conversion, so far-out or NaN samples add exactly 0 and never reach
+//    the box.
+//  - Rows written by several blocks need a reduction, so the value
+//    gradient stays a float32 scratch, cast once by the wrapper.
+//  - Tensor cores and TMA have no role: there is no matrix product, and the
+//    gathers are not the limit (the forward does the same ones in 0.128 ms).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 8;
+// PERF.md). On the training path's inputs: 13.9 M global reductions instead
+// of 125.0 M (every level summed on chip), 0.48 ms a launch in place in a
+// train step against 1.53 ms in the same run for the kernel that reduced
+// every corner in device memory, 11x the bound.
+//
+// The counting instantiation (kCount) adds up what it did with the value
+// gradient: list links, corners reduced in global memory and rows flushed
+// per level, and global reductions. chip_smoke.py and the card tests hold
+// these to the host's count (backward_counts in
+// odise_torch/ops/ms_deform_attn.py), which takes the box from the same
+// float32 pixel coordinates, rounded the same way.
+//
+// Launch: blocks = B * ceil(Lq / queries) * H, head fastest; the plan
+// (backward_plan) gives block size, queries a block, window rows and the
+// dynamic shared memory, and the entry point refuses a plan it cannot run.
+
+// The most threads a block may have, and the blocks of that size an SM must
+// hold: at most 85 registers a thread, 24 warps.
+constexpr int kBwdMaxThreads = 256;
+constexpr int kBwdMinBlocksPerSM = 3;
+// the shared memory a block may have on sm_90 (227 KB)
+constexpr int kMaxSharedBytes = 232448;
+// a list entry packs the next entry and the query into 16 bits each
+constexpr int kNoEntry = 0xffff;
+constexpr int kMaxEntries = kNoEntry;
+
+// loc * size - 0.5, each step rounded (never contracted into one fma), as
+// the host computes it in float32
+__device__ __forceinline__ float pixel_coord(float loc, int size) {
+  return __fsub_rn(__fmul_rn(loc, (float)size), 0.5f);
+}
+
+// a run's list entries at one level: one for each corner of each sample,
+// entry ((query in the run * P + point) * 4 + corner)
+__host__ __device__ inline int64_t bwd_entries(int queries, int P) {
+  return (int64_t)queries * P * 4;
+}
+
+// the run's grad_out of one head (D elements of `elem` bytes a query)
+__host__ __device__ inline int64_t bwd_grad_bytes(int queries, int D, int elem) {
+  return ((int64_t)queries * D * elem + 15) / 16 * 16;
+}
+
+// a box of each level, the run's grad_out, the rows' list heads (padded to
+// 8 B), the entries
+__host__ __device__ inline int64_t bwd_smem_bytes(int window_rows, int queries, int P, int D,
+                                                  int elem) {
+  return 4 * kMaxLevels * (int64_t)sizeof(int) + bwd_grad_bytes(queries, D, elem) +
+         (int64_t)((window_rows + 1) & ~1) * sizeof(int) +
+         bwd_entries(queries, P) * (int64_t)sizeof(int2);
+}
+
+// kCount: the same kernel that also adds to `counts` what it did with the
+// value gradient: [0] global reduction instructions, then for each level
+// the corners linked into lists, the corners reduced in global memory and
+// the rows flushed (kBwdCounts). The production instantiation has
+// kCount = false and takes no such count.
+constexpr int kBwdCounts = 1 + 3 * kMaxLevels;
+
+template <typename T, int VEC, bool kCount>
+__global__ void __launch_bounds__(kBwdMaxThreads, kBwdMinBlocksPerSM)
 ms_deform_attn_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                           const T* __restrict__ attn, const T* __restrict__ grad_out,
                           float* __restrict__ grad_value, float* __restrict__ grad_loc,
-                          float* __restrict__ grad_attn, int64_t n_threads, int Lv,
-                          int Lq, int H, int D, int P, int lanes, Levels lv) {
+                          float* __restrict__ grad_attn, int B, int Lv, int Lq, int H, int D,
+                          int P, int lanes, int queries, int window_rows, Levels lv,
+                          unsigned long long* __restrict__ counts) {
   using C = Chunk<T, VEC>;
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int chunks = D / VEC;  // a head's chunks, no more than `lanes`
-  const int64_t head = t / lanes;
-  const int lane = (int)(t - head * lanes);
-  const bool active = t < n_threads && lane < chunks;
-  // inactive lanes read (b, q, head, chunk) = 0's inputs and add nothing
-  const int64_t qh = active ? head : 0;
-  const int c = active ? lane : 0;
-  const int h = (int)(qh % H);
-  const int64_t b = qh / H / Lq;
-  const int n_samples = lv.n * P;
-  const float* loc_q = loc + qh * n_samples * 2;
-  const T* attn_q = attn + qh * n_samples;
-  const int64_t row_stride = (int64_t)H * D;
-  const int64_t head_off = b * Lv * row_stride + (int64_t)h * D + c * VEC;
-  const T* value_bhc = value + head_off;
-  float* grad_value_bhc = grad_value + head_off;
+  // reduction instructions a thread issues for a chunk of one row
+  constexpr int kReds = VEC % 4 == 0 ? VEC / 4 : VEC;
+  constexpr int G = 2;  // points whose corner loads are issued together
+  extern __shared__ int4 smem[];
+  int* boxes = reinterpret_cast<int*>(smem);  // (ylo, yhi, xlo, xhi) of each level
+  T* grad_s = reinterpret_cast<T*>(boxes + 4 * kMaxLevels);  // [queries, D]
+  int* heads = reinterpret_cast<int*>(reinterpret_cast<char*>(grad_s) +
+                                      bwd_grad_bytes(queries, D, sizeof(T)));
+  // a window row's first entry, kNoEntry: none. entry: (next entry << 16 |
+  // query in the run, a * w as float bits)
+  int2* entries = reinterpret_cast<int2*>(heads + ((window_rows + 1) & ~1));
 
-  float g[VEC];
-  C::unpack(C::keep(active, C::load(grad_out + qh * D + c * VEC)), g);
+  const int n_runs = (Lq + queries - 1) / queries;
+  const int h = blockIdx.x % H;
+  const int run = blockIdx.x / H;
+  const int b = run / n_runs;
+  if (b >= B) return;  // a whole block past the plan's: no barrier is left waiting
+  const int q_first = (run - b * n_runs) * queries;
+  const int q_end = min(q_first + queries, Lq);
+  const int per_pass = blockDim.x / lanes;
+  const int lane = threadIdx.x % lanes;
+  const int chunks = D / VEC;  // a head's chunks, no more than `lanes`
+  const int c = lane < chunks ? lane : 0;
+  const int n_samples = lv.n * P;
+  const int64_t row_stride = (int64_t)H * D;  // elements between value rows
+  const int64_t head_off = (int64_t)b * Lv * row_stride + (int64_t)h * D;
+  // grad_out of the run's first query, this head
+  const T* grad_out_run = grad_out + ((int64_t)b * Lq + q_first) * row_stride + (int64_t)h * D;
+
+  if (threadIdx.x < 4 * kMaxLevels) boxes[threadIdx.x] = (threadIdx.x & 1) ? INT_MIN : INT_MAX;
+  // the run's grad_out of this head into shared memory, read again by the
+  // passes and the flush
+  for (int i = threadIdx.x; i < (q_end - q_first) * chunks; i += blockDim.x) {
+    const int q = i / chunks;
+    const int64_t off = (int64_t)q * row_stride + (i - q * chunks) * VEC;
+    if constexpr (VEC > 1) {
+      *reinterpret_cast<uint4*>(grad_s + q * D + (i - q * chunks) * VEC) =
+          C::load(grad_out_run + off);
+    } else {
+      grad_s[i] = grad_out_run[off];
+    }
+  }
+  __syncthreads();
+
+  // the box (rows and columns) of the run's corners inside each level
+  {
+    int bx[kMaxLevels][4];
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l) {
+      bx[l][0] = bx[l][2] = INT_MAX;
+      bx[l][1] = bx[l][3] = INT_MIN;
+    }
+    for (int i = threadIdx.x; i < (q_end - q_first) * P; i += blockDim.x) {
+      const int q = q_first + i / P;
+      const float* lp = loc + ((((int64_t)b * Lq + q) * H + h) * n_samples + i % P) * 2;
+#pragma unroll
+      for (int l = 0; l < kMaxLevels; ++l) {
+        if (l >= lv.n) break;
+        const int hl = lv.h[l], wl = lv.w[l];
+        const float x0f = floorf(pixel_coord(__ldg(lp + 2 * l * P), wl));
+        const float y0f = floorf(pixel_coord(__ldg(lp + 2 * l * P + 1), hl));
+        if (x0f >= -1.f && x0f <= (float)(wl - 1) && y0f >= -1.f && y0f <= (float)(hl - 1)) {
+          const int x0 = (int)x0f, y0 = (int)y0f;
+          bx[l][0] = min(bx[l][0], max(y0, 0));
+          bx[l][1] = max(bx[l][1], min(y0 + 1, hl - 1));
+          bx[l][2] = min(bx[l][2], max(x0, 0));
+          bx[l][3] = max(bx[l][3], min(x0 + 1, wl - 1));
+        }
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l) {
+      if (l >= lv.n) break;
+      const int ylo = __reduce_min_sync(0xffffffffu, bx[l][0]);
+      const int yhi = __reduce_max_sync(0xffffffffu, bx[l][1]);
+      const int xlo = __reduce_min_sync(0xffffffffu, bx[l][2]);
+      const int xhi = __reduce_max_sync(0xffffffffu, bx[l][3]);
+      if ((threadIdx.x & 31) == 0) {
+        atomicMin(boxes + 4 * l, ylo);
+        atomicMax(boxes + 4 * l + 1, yhi);
+        atomicMin(boxes + 4 * l + 2, xlo);
+        atomicMax(boxes + 4 * l + 3, xhi);
+      }
+    }
+  }
+  __syncthreads();
 
   for (int l = 0; l < lv.n; ++l) {
     const int hl = lv.h[l];
     const int wl = lv.w[l];
-    const int64_t level_off = (int64_t)lv.start[l] * row_stride;
-    for (int p = 0; p < P; ++p) {
-      const int s = l * P + p;
-      const float x = __ldg(loc_q + 2 * s) * (float)wl - 0.5f;
-      const float y = __ldg(loc_q + 2 * s + 1) * (float)hl - 0.5f;
-      const float a = to_f32(attn_q[s]);
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      const bool near = active && x0f >= -1.f && x0f <= (float)(wl - 1) && y0f >= -1.f &&
-                        y0f <= (float)(hl - 1);
-      const int x0 = (int)(near ? x0f : 0.f);
-      const int y0 = (int)(near ? y0f : 0.f);
-      // 0 far out, so that no infinity or NaN of a location reaches a sum
-      const float fx = near ? x - x0f : 0.f;
-      const float fy = near ? y - y0f : 0.f;
-      const bool x0_in = near && x0 >= 0;
-      const bool x1_in = near && x0 + 1 <= wl - 1;
-      const bool y0_in = near && y0 >= 0;
-      const bool y1_in = near && y0 + 1 <= hl - 1;
-      const int64_t cx0 = (int64_t)max(x0, 0) * row_stride;
-      const int64_t cx1 = (int64_t)min(x0 + 1, wl - 1) * row_stride;
-      const int64_t ry0 = level_off + (int64_t)max(y0, 0) * wl * row_stride;
-      const int64_t ry1 = level_off + (int64_t)min(y0 + 1, hl - 1) * wl * row_stride;
-      const int64_t off[4] = {ry0 + cx0, ry0 + cx1, ry1 + cx0, ry1 + cx1};
-      const bool in[4] = {y0_in && x0_in, y0_in && x1_in, y1_in && x0_in, y1_in && x1_in};
-      float v[4][VEC];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) C::unpack(C::keep(in[k], C::load(value_bhc + off[k])), v[k]);
-      const float w[4] = {(1.f - fx) * (1.f - fy), fx * (1.f - fy), (1.f - fx) * fy, fx * fy};
+    const int64_t level_row = (int64_t)b * Lv + lv.start[l];
+    // this thread's counts at this level (kCount only)
+    unsigned long long n_red = 0, n_linked = 0, n_direct = 0, n_rows = 0;
+    const int* box = boxes + 4 * l;
+    const int wy = box[0], wx = box[2];
+    const int bh = box[1] >= box[0] ? box[1] - box[0] + 1 : 0;
+    const int bw = box[3] >= box[2] ? box[3] - box[2] + 1 : 0;
+    const int ww = min(bw, window_rows);
+    const int wh = ww > 0 ? min(bh, window_rows / ww) : 0;
+    const int rows = wh * ww;
 
-      float part_a = 0.f, part_x = 0.f, part_y = 0.f;
+    // (1) empty the window's lists
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) heads[i] = kNoEntry;
+    __syncthreads();
+
+    // (2) the samples of this level
+    for (int q0 = q_first; q0 < q_end; q0 += per_pass) {
+      const int q = q0 + (int)threadIdx.x / lanes;
+      const bool active = q < q_end && lane < chunks;
+      // inactive lanes read the run's first query and add nothing
+      const int q_run = active ? q - q_first : 0;
+      const int64_t qh = ((int64_t)b * Lq + q_first + q_run) * H + h;
+      float g[VEC];
+      C::unpack(C::keep(active, C::load_shared(grad_s + q_run * D + c * VEC)), g);
+      const float* loc_q = loc + qh * n_samples * 2;
+      const T* attn_q = attn + qh * n_samples;
+      const T* v_l = value + head_off + lv.start[l] * row_stride + c * VEC;
+
+      for (int p0 = 0; p0 < P; p0 += G) {
+        int y0[G], x0[G];
+        float fx[G], fy[G], a[G];
+        float d_attn[G], d_x[G], d_y[G];  // the points' weight and location gradients
+        bool near[G];
+        typename C::Raw raw[G][4];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float sampled = w[0] * v[0][i] + w[1] * v[1][i] + w[2] * v[2][i] + w[3] * v[3][i];
-        const float d_fx = (1.f - fy) * (v[1][i] - v[0][i]) + fy * (v[3][i] - v[2][i]);
-        const float d_fy = (1.f - fx) * (v[2][i] - v[0][i]) + fx * (v[3][i] - v[1][i]);
-        part_a = fmaf(g[i], sampled, part_a);
-        part_x = fmaf(g[i], d_fx, part_x);
-        part_y = fmaf(g[i], d_fy, part_y);
-      }
+        for (int k = 0; k < G; ++k) {
+          const bool real = p0 + k < P;
+          const int s = l * P + (real ? p0 + k : 0);
+          const float x = pixel_coord(__ldg(loc_q + 2 * s), wl);
+          const float y = pixel_coord(__ldg(loc_q + 2 * s + 1), hl);
+          a[k] = to_f32(attn_q[s]);
+          const float x0f = floorf(x);
+          const float y0f = floorf(y);
+          near[k] = active && real && x0f >= -1.f && x0f <= (float)(wl - 1) && y0f >= -1.f &&
+                    y0f <= (float)(hl - 1);
+          x0[k] = (int)(near[k] ? x0f : 0.f);
+          y0[k] = (int)(near[k] ? y0f : 0.f);
+          // 0 far out, so that no infinity or NaN of a location reaches a sum
+          fx[k] = near[k] ? x - x0f : 0.f;
+          fy[k] = near[k] ? y - y0f : 0.f;
+          const int64_t cx0 = (int64_t)max(x0[k], 0) * row_stride;
+          const int64_t cx1 = (int64_t)min(x0[k] + 1, wl - 1) * row_stride;
+          const T* r0 = v_l + (int64_t)max(y0[k], 0) * wl * row_stride;
+          const T* r1 = v_l + (int64_t)min(y0[k] + 1, hl - 1) * wl * row_stride;
+          raw[k][0] = C::load(r0 + cx0);
+          raw[k][1] = C::load(r0 + cx1);
+          raw[k][2] = C::load(r1 + cx0);
+          raw[k][3] = C::load(r1 + cx1);
+        }
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (in[k]) {
-          float* dst = grad_value_bhc + off[k];
-          const float wa = w[k] * a;
+        for (int k = 0; k < G; ++k) {
+          const bool x0_in = near[k] && x0[k] >= 0;
+          const bool x1_in = near[k] && x0[k] + 1 <= wl - 1;
+          const bool y0_in = near[k] && y0[k] >= 0;
+          const bool y1_in = near[k] && y0[k] + 1 <= hl - 1;
+          const bool in[4] = {y0_in && x0_in, y0_in && x1_in, y1_in && x0_in, y1_in && x1_in};
+          const float w[4] = {(1.f - fx[k]) * (1.f - fy[k]), fx[k] * (1.f - fy[k]),
+                              (1.f - fx[k]) * fy[k], fx[k] * fy[k]};
+          // the corners' dot products with grad_out over this chunk; the
+          // weight and location gradients are sums of them
+          float dot[4];
 #pragma unroll
-          for (int i = 0; i < VEC; i += (VEC % 4 == 0 ? 4 : 1)) {
-            if constexpr (VEC % 4 == 0) {
-              // one vector reduction for 4 channels (sm_90); the scratch
-              // row and the chunk start on 16-byte boundaries
-              asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(dst + i),
-                           "f"(wa * g[i]), "f"(wa * g[i + 1]), "f"(wa * g[i + 2]),
-                           "f"(wa * g[i + 3])
-                           : "memory");
-            } else {
-              atomicAdd(dst + i, wa * g[i]);
+          for (int j = 0; j < 4; ++j) {
+            float v[VEC];
+            C::unpack(C::keep(in[j], raw[k][j]), v);
+            dot[j] = 0.f;
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) dot[j] = fmaf(g[i], v[i], dot[j]);
+          }
+          // corners in the window: a list entry each, corner j linked by lane
+          // j % lanes of the query; the others: this chunk's global reduction
+          int in_window = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (!in[j]) continue;
+            const int cy = y0[k] + (j >> 1);
+            const int cx = x0[k] + (j & 1);
+            if ((unsigned)(cy - wy) < (unsigned)wh && (unsigned)(cx - wx) < (unsigned)ww) {
+              in_window |= 1 << j;
+              continue;
+            }
+            if constexpr (kCount) {
+              n_red += kReds;
+              n_direct += lane == 0;
+            }
+            const float wa = w[j] * a[k];
+            float* dst = grad_value + ((level_row + (int64_t)cy * wl + cx) * H + h) * D + c * VEC;
+#pragma unroll
+            for (int i = 0; i < VEC; i += (VEC % 4 == 0 ? 4 : 1)) {
+              if constexpr (VEC % 4 == 0) {
+                // one vector reduction for 4 channels (sm_90); the scratch
+                // row and the chunk start on 16-byte boundaries
+                asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(dst + i),
+                             "f"(wa * g[i]), "f"(wa * g[i + 1]), "f"(wa * g[i + 2]),
+                             "f"(wa * g[i + 3])
+                             : "memory");
+              } else {
+                atomicAdd(dst + i, wa * g[i]);
+              }
+            }
+          }
+          if (lane < 4) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              // j % chunks: an active lane (with 3 chunks, lane 3 pads)
+              if (!(in_window >> j & 1) || j % chunks != lane) continue;
+              if constexpr (kCount) ++n_linked;
+              const int r = (y0[k] + (j >> 1) - wy) * ww + x0[k] + (j & 1) - wx;
+              const int e = (q_run * P + p0 + k) * 4 + j;
+              const int next = atomicExch(heads + r, e);
+              entries[e] = make_int2((int)((unsigned)next << 16 | (unsigned)q_run),
+                                     __float_as_int(w[j] * a[k]));
+            }
+          }
+          for (int o = lanes / 2; o > 0; o >>= 1) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) dot[j] += __shfl_xor_sync(0xffffffffu, dot[j], o);
+          }
+          d_attn[k] = w[0] * dot[0] + w[1] * dot[1] + w[2] * dot[2] + w[3] * dot[3];
+          d_x[k] = a[k] * (float)wl *
+                   ((1.f - fy[k]) * (dot[1] - dot[0]) + fy[k] * (dot[3] - dot[2]));
+          d_y[k] = a[k] * (float)hl *
+                   ((1.f - fx[k]) * (dot[2] - dot[0]) + fx[k] * (dot[3] - dot[1]));
+        }
+        if (active && lane == 0) {
+          const int64_t out = qh * n_samples + l * P + p0;
+          if (P % 2 == 0) {  // out is even: 8 and 16 B aligned
+            *reinterpret_cast<float2*>(grad_attn + out) = make_float2(d_attn[0], d_attn[1]);
+            *reinterpret_cast<float4*>(grad_loc + 2 * out) =
+                make_float4(d_x[0], d_y[0], d_x[1], d_y[1]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < G; ++k) {
+              if (p0 + k >= P) break;
+              grad_attn[out + k] = d_attn[k];
+              grad_loc[2 * (out + k)] = d_x[k];
+              grad_loc[2 * (out + k) + 1] = d_y[k];
             }
           }
         }
       }
-      for (int o = lanes / 2; o > 0; o >>= 1) {
-        part_a += __shfl_xor_sync(0xffffffffu, part_a, o);
-        part_x += __shfl_xor_sync(0xffffffffu, part_x, o);
-        part_y += __shfl_xor_sync(0xffffffffu, part_y, o);
+    }
+    __syncthreads();
+
+    // (3) flush: each chunk of each touched row summed once, then added to
+    // the float32 scratch
+    for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+      const int r = i / chunks;
+      int e = heads[r];
+      if (e == kNoEntry) continue;
+      const int cc = i - r * chunks;
+      float acc[VEC];
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) acc[t] = 0.f;
+      // the next entry is loaded while this one's grad_out is read
+      int2 entry = entries[e];
+      while (true) {
+        e = (unsigned)entry.x >> 16;
+        const int2 next = entries[e == kNoEntry ? 0 : e];
+        float gq[VEC];
+        C::unpack(C::load_shared(grad_s + (entry.x & 0xffff) * D + cc * VEC), gq);
+        const float wa = __int_as_float(entry.y);
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) acc[t] = fmaf(wa, gq[t], acc[t]);
+        if (e == kNoEntry) break;
+        entry = next;
       }
-      if (active && c == 0) {
-        const int64_t out = qh * n_samples + s;
-        grad_attn[out] = part_a;
-        grad_loc[2 * out] = a * (float)wl * part_x;
-        grad_loc[2 * out + 1] = a * (float)hl * part_y;
+      if constexpr (kCount) {
+        n_red += kReds;
+        n_rows += cc == 0;
+      }
+      const int64_t row = level_row + (int64_t)(wy + r / ww) * wl + wx + r % ww;
+      float* dst = grad_value + (row * H + h) * D + cc * VEC;
+#pragma unroll
+      for (int t = 0; t < VEC; t += (VEC % 4 == 0 ? 4 : 1)) {
+        if constexpr (VEC % 4 == 0) {
+          asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(dst + t),
+                       "f"(acc[t]), "f"(acc[t + 1]), "f"(acc[t + 2]), "f"(acc[t + 3])
+                       : "memory");
+        } else {
+          atomicAdd(dst + t, acc[t]);
+        }
       }
     }
+    if constexpr (kCount) {
+      const unsigned long long n[4] = {n_red, n_linked, n_direct, n_rows};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (n[i]) atomicAdd(counts + (i == 0 ? 0 : 1 + 3 * l + i - 1), n[i]);
+    }
+    __syncthreads();
   }
 }
 
-// The backward kernel for a dtype and a chunk width, or null if there is none.
-const void* bwd_kernel_for(int dtype, int vec) {
-  if (dtype == 0 && vec == 1) return (const void*)ms_deform_attn_bwd_kernel<float, 1>;
-  if (dtype == 0 && vec == 4) return (const void*)ms_deform_attn_bwd_kernel<float, 4>;
-  if (dtype == 1 && vec == 1) return (const void*)ms_deform_attn_bwd_kernel<__nv_bfloat16, 1>;
-  if (dtype == 1 && vec == 8) return (const void*)ms_deform_attn_bwd_kernel<__nv_bfloat16, 8>;
+template <typename T, int VEC>
+const void* bwd_variant(bool counted) {
+  return counted ? (const void*)ms_deform_attn_bwd_kernel<T, VEC, true>
+                 : (const void*)ms_deform_attn_bwd_kernel<T, VEC, false>;
+}
+
+// The backward kernel for a dtype and a chunk width, counting or not, or
+// null if there is none.
+const void* bwd_kernel_for(int dtype, int vec, bool counted) {
+  if (dtype == 0 && vec == 1) return bwd_variant<float, 1>(counted);
+  if (dtype == 0 && vec == 4) return bwd_variant<float, 4>(counted);
+  if (dtype == 1 && vec == 1) return bwd_variant<__nv_bfloat16, 1>(counted);
+  if (dtype == 1 && vec == 8) return bwd_variant<__nv_bfloat16, 8>(counted);
   return nullptr;
 }
 
@@ -554,24 +860,37 @@ extern "C" int ms_deform_attn_forward(const void* value, const void* loc,
 
 // ms_deform_attn_backward launches the backward kernel on `stream`:
 // `grad_out` is [B, Lq, H * D] in the value's dtype, 16 B aligned with value
-// for `vec` > 1; `grad_value` is a zeroed float32 [B, Lv, H, D] scratch,
-// `grad_loc` float32 [B, Lq, H, L, P, 2] and `grad_attn` float32
-// [B, Lq, H, L, P], which it overwrites. A head takes D / vec chunks rounded
-// up to a power of two lanes, which must be no more than 32; blocks are
-// whole warps and cover B * Lq * H heads of such lanes. Other arguments as
-// for the forward.
+// for `vec` > 1; `grad_value` is a zeroed float32
+// [B, Lv, H, D] scratch, `grad_loc` float32 [B, Lq, H, L, P, 2] and
+// `grad_attn` float32 [B, Lq, H, L, P], which it overwrites. A head takes
+// D / vec chunks rounded up to a power of two lanes, which must be no more
+// than 32. A block of `block_threads` (whole warps, at most kBwdMaxThreads)
+// takes `queries` consecutive queries of one head, a multiple of the
+// block_threads / lanes it takes in one pass, with lists for a window of
+// `window_rows` rows and 4 entries a sample in dynamic shared memory (no
+// more than kMaxEntries entries and kMaxSharedBytes in all); `blocks` must
+// cover B * ceil(Lq / queries) * H.
+// `counts`: null, or a zeroed device array of kBwdCounts uint64 to which the
+// counting instantiation adds what it did (see the kernel).
+// Other arguments as for the forward.
 extern "C" int ms_deform_attn_backward(const void* value, const void* loc,
                                        const void* attn, const void* grad_out,
                                        void* grad_value, void* grad_loc, void* grad_attn,
                                        int B, int Lv, int Lq, int H, int D, int n_levels,
                                        int P, const void* level_hws, int dtype, int vec,
-                                       int blocks, int block_threads, void* stream) {
-  const void* kernel = bwd_kernel_for(dtype, vec);
+                                       int queries, int window_rows, int blocks,
+                                       int block_threads, void* counts, void* stream) {
+  const void* kernel = bwd_kernel_for(dtype, vec, counts != nullptr);
   if (kernel == nullptr || n_levels < 1 || n_levels > kMaxLevels || P < 1 || D % vec != 0 ||
-      block_threads < 1 || block_threads > kBlockThreads || block_threads % 32 != 0)
+      block_threads < 32 || block_threads > kBwdMaxThreads || block_threads % 32 != 0 ||
+      window_rows < 1)
     return (int)cudaErrorInvalidValue;
   int lanes = bwd_lanes(D / vec);
-  if (lanes == 0) return (int)cudaErrorInvalidValue;
+  if (lanes == 0 || queries < 1 || queries % (block_threads / lanes) != 0 ||
+      bwd_entries(queries, P) > kMaxEntries)
+    return (int)cudaErrorInvalidValue;
+  const int64_t smem = bwd_smem_bytes(window_rows, queries, P, D, dtype == 0 ? 4 : 2);
+  if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   Levels lv;
   lv.n = n_levels;
   const int* hws = static_cast<const int*>(level_hws);
@@ -580,26 +899,35 @@ extern "C" int ms_deform_attn_backward(const void* value, const void* loc,
     lv.w[l] = hws[3 * l + 1];
     lv.start[l] = hws[3 * l + 2];
   }
-  int64_t n_threads = (int64_t)B * Lq * H * lanes;
-  if (n_threads == 0) return (int)cudaSuccess;
-  if (blocks < 1 || (int64_t)blocks * block_threads < n_threads)
-    return (int)cudaErrorInvalidValue;
-  void* args[] = {&value, &loc, &attn, &grad_out, &grad_value, &grad_loc, &grad_attn,
-                  &n_threads, &Lv, &Lq, &H, &D, &P, &lanes, &lv};
+  if ((int64_t)B * Lq * H == 0) return (int)cudaSuccess;
+  if (blocks < (int64_t)B * ((Lq + queries - 1) / queries) * H) return (int)cudaErrorInvalidValue;
   cudaGetLastError();  // clear an earlier, unrelated error
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&value, &loc,     &attn, &grad_out, &grad_value, &grad_loc,    &grad_attn, &B,
+                  &Lv,    &Lq,      &H,    &D,        &P,          &lanes,       &queries,
+                  &window_rows, &lv, &counts};
   return (int)cudaLaunchKernel(kernel, dim3((unsigned)blocks), dim3((unsigned)block_threads),
-                               args, 0, static_cast<cudaStream_t>(stream));
+                               args, (size_t)smem, static_cast<cudaStream_t>(stream));
 }
 
 // ms_deform_attn_backward_occupancy: as ms_deform_attn_occupancy, for the
-// backward kernel of a dtype and chunk width.
-extern "C" int ms_deform_attn_backward_occupancy(int dtype, int vec, int block_threads,
+// backward kernel of a dtype and chunk width with the dynamic shared memory
+// of a plan's window rows and queries a block at P points a level.
+extern "C" int ms_deform_attn_backward_occupancy(int dtype, int vec, int D, int window_rows,
+                                                 int queries, int P, int block_threads,
                                                  int* blocks_per_sm) {
-  const void* kernel = bwd_kernel_for(dtype, vec);
-  if (kernel == nullptr || block_threads < 1 || block_threads > kBlockThreads)
+  const void* kernel = bwd_kernel_for(dtype, vec, false);
+  const int64_t smem = bwd_smem_bytes(window_rows, queries, P, D, dtype == 0 ? 4 : 2);
+  if (kernel == nullptr || block_threads < 1 || block_threads > kBwdMaxThreads ||
+      window_rows < 1 || bwd_entries(queries, P) > kMaxEntries || smem > kMaxSharedBytes)
     return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
-                                                            block_threads, 0);
+                                                            block_threads, (size_t)smem);
 }
 
 // ms_deform_attn_occupancy writes to `blocks_per_sm` how many blocks of

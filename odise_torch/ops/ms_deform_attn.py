@@ -19,12 +19,13 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["MSDeformAttnFunction", "backward_plan", "launch", "launch_backward",
-           "launch_plan", "ms_deform_attn", "ms_deform_attn_backward",
-           "ms_deform_attn_backward_torch", "ms_deform_attn_torch",
+__all__ = ["MSDeformAttnFunction", "backward_counts", "backward_plan", "backward_smem_bytes",
+           "count_backward", "launch", "launch_backward", "launch_plan", "ms_deform_attn",
+           "ms_deform_attn_backward", "ms_deform_attn_backward_torch", "ms_deform_attn_torch",
            "resident_warps"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_LEVELS = 8  # kMaxLevels in the kernels' source
 
 
 def ms_deform_attn_torch(value: torch.Tensor,
@@ -129,16 +130,43 @@ def launch_plan(batch: int, len_q: int, n_heads: int, head_dim: int,
                       blocks=-(-threads // BLOCK_THREADS))
 
 
+BWD_BLOCK_THREADS = 256   # kBwdMaxThreads in the source
+BWD_BLOCKS_PER_SM = 3     # kBwdMinBlocksPerSM: at most 85 registers a thread
+BWD_QUERIES = 256         # the most consecutive queries of one head a block takes
+# an SM's 228 KB, less the 1 KB the runtime keeps for each block, shared by
+# BWD_BLOCKS_PER_SM blocks
+BWD_BLOCK_SHARED = 233_472 // BWD_BLOCKS_PER_SM - 1024
+MAX_ENTRIES = 65_535      # list entries a block holds (16-bit links)
+
+
+def backward_smem_bytes(window_rows: int, queries: int, n_points: int, head_dim: int,
+                        dtype: torch.dtype) -> int:
+    """The backward kernel's dynamic shared memory (``bwd_smem_bytes`` in
+    the source): a box of each of up to 8 levels (128 bytes), the block's
+    grad_out (``queries`` rows of ``head_dim`` elements, padded to 16
+    bytes), the list head of each of ``window_rows`` rows (an even count of
+    ints), and a list entry of 8 bytes for each corner of each sample of
+    the block's queries at one level."""
+    grad = -(-queries * head_dim * dtype.itemsize // 16) * 16
+    return 128 + grad + 4 * ((window_rows + 1) & ~1) + 8 * 4 * queries * n_points
+
+
 class BackwardPlan(NamedTuple):
-    """What the backward C entry point launches: one thread per chunk of a
-    head of a query, as in the forward, with a head's threads padded to a
-    power of two ``lanes_per_head`` (at most a warp) that sum their partial
-    weight and location gradients by warp shuffles."""
+    """What the backward C entry point launches: a block takes
+    ``queries_per_block`` consecutive queries of one (batch, head), with a
+    thread per chunk of the head as in the forward (a head's threads padded
+    to a power of two ``lanes_per_head`` of one warp), and the value
+    gradient of a window of ``window_rows`` rows of the head summed from
+    lists in shared memory, 4 entries for each of a query's ``n_points``
+    samples of a level."""
     chunk_elems: int
     chunk_bytes: int
     threads_per_head: int  # the head's chunks
     lanes_per_head: int    # the chunks rounded up to a power of two
-    threads: int
+    n_points: int
+    queries_per_block: int
+    window_rows: int
+    smem_bytes: int
     block_threads: int
     blocks: int
 
@@ -148,23 +176,135 @@ class BackwardPlan(NamedTuple):
 
 
 def backward_plan(batch: int, len_q: int, n_heads: int, head_dim: int,
-                  dtype: torch.dtype) -> BackwardPlan:
-    """The forward's chunks (``launch_plan``), a head's chunks padded to a
-    power of two lanes; raises ``ValueError`` where a head takes more than
-    32 chunks: float32 heads of more than 32 channels that are not a
+                  dtype: torch.dtype, n_points: int) -> BackwardPlan:
+    """The forward's chunks (``launch_plan``), a head's padded to a power of
+    two lanes; blocks over 256 consecutive queries of one head (halved
+    while their lists take more than 65,535 entries or than a third of an
+    SM's shared memory) of 256 threads (fewer where that is more than one
+    pass over the queries), with a window of as many rows as leave an SM
+    room for 3 blocks. Raises ``ValueError`` where a head takes more than
+    32 chunks (float32 heads of more than 32 channels that are not a
     multiple of 4, or of more than 128; bf16 heads of more than 32 that are
-    not a multiple of 8, or of more than 256."""
+    not a multiple of 8, or of more than 256), and where a block's lists
+    are over 65,535 entries or its shared memory over 227 KB."""
     f = launch_plan(batch, len_q, n_heads, head_dim, dtype, 1, 1)
     chunks = f.threads_per_head
     if chunks > 32:
         raise ValueError(f"the backward kernel takes at most 32 chunks a head; "
                          f"head_dim {head_dim} in {dtype} is {chunks}")
     lanes = 1 << (chunks - 1).bit_length()
-    threads = batch * len_q * n_heads * lanes
+    queries_per_block = BWD_QUERIES
+    while queries_per_block * lanes > 32 and (
+            4 * queries_per_block * n_points > MAX_ENTRIES
+            or backward_smem_bytes(2, queries_per_block, n_points, head_dim,
+                                   dtype) > BWD_BLOCK_SHARED):
+        queries_per_block //= 2
+    entries = 4 * queries_per_block * n_points
+    if entries > MAX_ENTRIES:
+        raise ValueError(f"{queries_per_block} queries of {n_points} points take {entries} "
+                         f"list entries in shared memory; a block holds {MAX_ENTRIES}")
+    free = BWD_BLOCK_SHARED - backward_smem_bytes(0, queries_per_block, n_points,
+                                                  head_dim, dtype)
+    window_rows = max(free // 4 & ~1, 0)
+    smem = backward_smem_bytes(window_rows, queries_per_block, n_points, head_dim, dtype)
+    if window_rows < 1:
+        raise ValueError(f"lists for {queries_per_block} queries of {n_points} points take "
+                         f"{smem} bytes of shared memory; a block has {BWD_BLOCK_SHARED} "
+                         f"where an SM holds {BWD_BLOCKS_PER_SM}")
+    runs = -(-len_q // queries_per_block)
     return BackwardPlan(chunk_elems=f.chunk_elems, chunk_bytes=f.chunk_bytes,
-                        threads_per_head=chunks, lanes_per_head=lanes, threads=threads,
-                        block_threads=f.block_threads,
-                        blocks=-(-threads // f.block_threads))
+                        threads_per_head=chunks, lanes_per_head=lanes, n_points=n_points,
+                        queries_per_block=queries_per_block, window_rows=window_rows,
+                        smem_bytes=smem,
+                        block_threads=min(BWD_BLOCK_THREADS, lanes * queries_per_block),
+                        blocks=batch * runs * n_heads)
+
+
+def _with_window(plan: BackwardPlan, window_rows: int, head_dim: int,
+                 dtype: torch.dtype) -> BackwardPlan:
+    """``plan`` with a window of ``window_rows`` rows, which tests use to cut
+    windows small; the C entry point refuses a window that does not fit."""
+    return plan._replace(window_rows=window_rows, smem_bytes=backward_smem_bytes(
+        window_rows, plan.queries_per_block, plan.n_points, head_dim, dtype))
+
+
+class BackwardCounts(NamedTuple):
+    """What the backward kernel does with the value gradient on given
+    sampling locations: counted on the host (``backward_counts``) or read
+    from the kernel (``count_backward``); per level where a tuple."""
+    corners: Tuple[int, ...]        # sample corners inside their level
+    in_shared: Tuple[int, ...]      # of which inside their block's window,
+                                    # summed on chip
+    flushed_rows: Tuple[int, ...]   # window rows touched, each flushed once
+    global_reductions: int          # global reduction instructions in all
+    direct_reductions: int          # the same with every corner reduced in
+                                    # global memory
+
+    @property
+    def in_shared_share(self) -> Tuple[float, ...]:
+        return tuple(s / c if c else 1.0 for s, c in zip(self.in_shared, self.corners))
+
+
+def backward_counts(sampling_locations: torch.Tensor,
+                    spatial_shapes: Sequence[Tuple[int, int]],
+                    plan: BackwardPlan) -> BackwardCounts:
+    """Count, from the sampling locations and the plan alone, what the
+    backward kernel does: each block's box of inside corners per level and
+    its window (the same float32 pixel coordinates and the same cut as the
+    kernel), the corners summed on chip, the window rows they touch (each
+    flushed once per block), and the global reductions: one per 4 channels
+    (or per channel where the chunk is one element) of each corner outside
+    its window and of each flushed row."""
+    loc = sampling_locations
+    B, Lq, H, _, P, _ = loc.shape
+    D = plan.chunk_elems * plan.threads_per_head
+    per_row = D // 4 if plan.chunk_elems % 4 == 0 else D
+    C = plan.window_rows
+    runs = -(-Lq // plan.queries_per_block)
+    dev = loc.device
+    run = torch.arange(Lq, device=dev) // plan.queries_per_block
+    block = ((torch.arange(B, device=dev)[:, None, None] * runs + run[None, :, None]) * H
+             + torch.arange(H, device=dev)[None, None, :])
+    block = block[..., None].expand(B, Lq, H, P).reshape(-1)
+    n_blocks = B * runs * H
+    corners, in_shared, flushed = [], [], []
+
+    def reduce(v, near, fill, how):
+        out = torch.full((n_blocks,), fill, dtype=torch.long, device=dev)
+        return out.scatter_reduce(0, block, torch.where(near, v, fill), how)
+
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x0f = torch.floor(loc[:, :, :, lvl, :, 0] * w - 0.5).reshape(-1)
+        y0f = torch.floor(loc[:, :, :, lvl, :, 1] * h - 0.5).reshape(-1)
+        near = (x0f >= -1) & (x0f <= w - 1) & (y0f >= -1) & (y0f <= h - 1)
+        x0 = torch.where(near, x0f, 0).long()
+        y0 = torch.where(near, y0f, 0).long()
+        wy = reduce(y0.clamp(min=0), near, 2 ** 62, "amin")
+        yhi = reduce((y0 + 1).clamp(max=h - 1), near, -1, "amax")
+        wx = reduce(x0.clamp(min=0), near, 2 ** 62, "amin")
+        xhi = reduce((x0 + 1).clamp(max=w - 1), near, -1, "amax")
+        bh, bw = (yhi - wy + 1).clamp(min=0), (xhi - wx + 1).clamp(min=0)
+        ww = bw.clamp(max=C)
+        wh = torch.minimum(bh, C // ww.clamp(min=1))
+        inside_n, shared_n, rows = 0, 0, []
+        for dy in (0, 1):
+            for dx in (0, 1):
+                cy, cx = y0 + dy, x0 + dx
+                inside = near & (cy >= 0) & (cy <= h - 1) & (cx >= 0) & (cx <= w - 1)
+                ry, rx = cy - wy[block], cx - wx[block]
+                shared = (inside & (ry >= 0) & (ry < wh[block]) & (rx >= 0)
+                          & (rx < ww[block]))
+                inside_n += int(inside.sum())
+                shared_n += int(shared.sum())
+                rows.append((block * C + ry * ww[block] + rx)[shared])
+        corners.append(inside_n)
+        in_shared.append(shared_n)
+        flushed.append(int(torch.unique(torch.cat(rows)).numel()))
+    outside = sum(corners) - sum(in_shared)
+    return BackwardCounts(corners=tuple(corners), in_shared=tuple(in_shared),
+                          flushed_rows=tuple(flushed),
+                          global_reductions=(outside + sum(flushed)) * per_row,
+                          direct_reductions=sum(corners) * per_row)
 
 
 @functools.lru_cache(maxsize=None)
@@ -176,12 +316,12 @@ def _lib():
         ctypes.c_void_p]
     lib.ms_deform_attn_forward.restype = ctypes.c_int
     lib.ms_deform_attn_backward.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p] * 2
     lib.ms_deform_attn_backward.restype = ctypes.c_int
     lib.ms_deform_attn_occupancy.argtypes = [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_int)]
-    lib.ms_deform_attn_backward_occupancy.argtypes = [ctypes.c_int] * 3 + [
+    lib.ms_deform_attn_backward_occupancy.argtypes = [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_int)]
     for name in ("ms_deform_attn_occupancy", "ms_deform_attn_backward_occupancy"):
         getattr(lib, name).restype = ctypes.c_int
@@ -195,7 +335,9 @@ def resident_warps(dtype: torch.dtype, plan) -> int:
     blocks = ctypes.c_int(0)
     if isinstance(plan, BackwardPlan):
         err = _lib().ms_deform_attn_backward_occupancy(
-            _DTYPE_CODE[dtype], plan.chunk_elems, plan.block_threads, ctypes.byref(blocks))
+            _DTYPE_CODE[dtype], plan.chunk_elems, plan.chunk_elems * plan.threads_per_head,
+            plan.window_rows, plan.queries_per_block, plan.n_points, plan.block_threads,
+            ctypes.byref(blocks))
     else:
         err = _lib().ms_deform_attn_occupancy(
             _DTYPE_CODE[dtype], plan.chunk_elems, int(plan.specialised),
@@ -228,8 +370,8 @@ def _check_kernel_inputs(value, sampling_locations, attention_weights, extra=())
     for name, t in inputs:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if sampling_locations.shape[3] > 8:
-        raise ValueError("the kernel takes at most 8 levels")
+    if sampling_locations.shape[3] > MAX_LEVELS:
+        raise ValueError(f"the kernel takes at most {MAX_LEVELS} levels")
     return inputs
 
 
@@ -274,6 +416,43 @@ def launch_backward(value, spatial_shapes, sampling_locations, attention_weights
     [B, Len_q, heads * head_dim] in the value's dtype. Returns (grad_value
     in the value's dtype, grad_sampling_locations float32,
     grad_attention_weights in the value's dtype)."""
+    grads = _run_backward(value, spatial_shapes, sampling_locations, attention_weights,
+                          grad_out, plan, None)
+    ms_deform_attn_backward.launches += 1
+    return grads
+
+
+def count_backward(value, spatial_shapes, sampling_locations, attention_weights,
+                   grad_out, plan: BackwardPlan | None = None) -> BackwardCounts:
+    """What the backward kernel did with the value gradient on these inputs,
+    read from the card: the kernel's counting instantiation (the same
+    source, which also adds up its own list links, global reductions and
+    flushed rows) launched as ``launch_backward`` would launch the kernel.
+    A measurement, not a launch of the training path: it is not counted in
+    ``ms_deform_attn_backward.launches``."""
+    if value.device.type != "cuda":
+        raise ValueError("count_backward reads the kernel's counts on the card")
+    B, Len_q, n_heads, n_levels, n_points, _ = sampling_locations.shape
+    hd = value.shape[-1]
+    if plan is None:
+        plan = backward_plan(B, Len_q, n_heads, hd, value.dtype, n_points)
+    counts = torch.zeros(1 + 3 * MAX_LEVELS, dtype=torch.int64, device=value.device)
+    _run_backward(value, spatial_shapes, sampling_locations, attention_weights, grad_out,
+                  plan, counts)
+    n = counts.tolist()
+    linked, direct, rows = (tuple(n[1 + 3 * lvl + i] for lvl in range(n_levels))
+                            for i in range(3))
+    corners = tuple(s + d for s, d in zip(linked, direct))
+    per_row = hd // 4 if plan.chunk_elems % 4 == 0 else hd
+    return BackwardCounts(corners=corners, in_shared=linked, flushed_rows=rows,
+                          global_reductions=n[0], direct_reductions=sum(corners) * per_row)
+
+
+def _run_backward(value, spatial_shapes, sampling_locations, attention_weights, grad_out,
+                  plan, counts):
+    """Launch the backward kernel (``counts``: None, or a zeroed int64
+    tensor on the card for the counting instantiation) and return its
+    gradients."""
     if grad_out.dtype != value.dtype:
         raise TypeError(f"grad_out ({grad_out.dtype}) must have the value's "
                         f"dtype ({value.dtype})")
@@ -285,7 +464,9 @@ def launch_backward(value, spatial_shapes, sampling_locations, attention_weights
         raise ValueError(f"grad_out must be {(B, Len_q, n_heads * hd)}, got "
                          f"{tuple(grad_out.shape)}")
     if plan is None:
-        plan = backward_plan(B, Len_q, n_heads, hd, value.dtype)
+        plan = backward_plan(B, Len_q, n_heads, hd, value.dtype, n_points)
+    if plan.n_points != n_points:
+        raise ValueError(f"a plan for {plan.n_points} points, not {n_points}")
     if plan.chunk_bytes == 16:
         for name, t in (inputs[0], inputs[3]):
             if t.data_ptr() % 16:
@@ -305,11 +486,11 @@ def launch_backward(value, spatial_shapes, sampling_locations, attention_weights
                  grad_value.data_ptr(), grad_loc.data_ptr(), grad_attn.data_ptr(),
                  B, Len_v, Len_q, n_heads, hd, n_levels, n_points,
                  ctypes.addressof(hws_arr), _DTYPE_CODE[value.dtype],
-                 plan.chunk_elems, plan.blocks, plan.block_threads, stream)
+                 plan.chunk_elems, plan.queries_per_block, plan.window_rows, plan.blocks,
+                 plan.block_threads, None if counts is None else counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ms_deform_attn backward kernel launch failed: CUDA "
                            f"error {err}")
-    ms_deform_attn_backward.launches += 1
     return (grad_value.to(value.dtype), grad_loc,
             grad_attn.to(attention_weights.dtype))
 

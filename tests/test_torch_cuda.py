@@ -13,10 +13,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from odise_torch.models.decoder.pixel_decoder import MSDeformAttn  # noqa: E402
 from odise_torch.ops.ms_deform_attn import (  # noqa: E402
-    backward_plan, launch, launch_backward, launch_plan, ms_deform_attn,
-    ms_deform_attn_backward, ms_deform_attn_backward_torch, ms_deform_attn_torch,
-    resident_warps)
+    _with_window, backward_counts, backward_plan, count_backward, launch, launch_backward,
+    launch_plan, ms_deform_attn, ms_deform_attn_backward, ms_deform_attn_backward_torch,
+    ms_deform_attn_torch, resident_warps)
 
 SHAPES = [(40, 40), (6, 8), (3, 4)]
 MAIN_PATH_SHAPES = [(32, 32), (64, 64), (128, 128)]  # 1024-px image, coarsest first
@@ -240,16 +241,20 @@ def test_device_eval_runner_on_the_card_matches_the_cpu(cuda):
 BWD_SHAPES = [(32, 32), (8, 16), (4, 4)]
 
 
-def _check_backward(v, l, a, shapes=BWD_SHAPES, seed=0):
-    """The backward kernel against the plain backward run in float64 on the
-    same inputs: for each gradient within the float32 plain backward's own
-    error plus 1e-5 of the largest gradient (bf16: plus two bf16 ulps of
-    it). Returns the kernel's gradients."""
+def _check_backward(v, l, a, shapes=BWD_SHAPES, seed=0, plan=None):
+    """The backward kernel (under ``plan``, by default ``backward_plan``'s)
+    against the plain backward run in float64 on the same inputs: for each
+    gradient within the float32 plain backward's own error plus 1e-5 of the
+    largest gradient (bf16: plus two bf16 ulps of it). Returns the kernel's
+    gradients."""
     B, Lq, H = l.shape[:3]
     g = torch.from_numpy(np.random.RandomState(seed).randn(B, Lq, H * v.shape[-1])
                          .astype(np.float32)).cuda().to(v.dtype)
     before = ms_deform_attn_backward.launches
-    got = ms_deform_attn_backward(v, shapes, l, a, g)
+    if plan is None:
+        got = ms_deform_attn_backward(v, shapes, l, a, g)
+    else:
+        got = launch_backward(v, shapes, l, a, g, plan)
     torch.cuda.synchronize()
     assert ms_deform_attn_backward.launches == before + 1
     plain = ms_deform_attn_backward_torch(v.float(), shapes, l, a.float(), g.float())
@@ -263,8 +268,13 @@ def _check_backward(v, l, a, shapes=BWD_SHAPES, seed=0):
     return got
 
 
+# head_dims of the backward's cases: 6 and 40 pad a head's chunks to 8
+# lanes; 12 (float32) and 24 (bf16) take 3 chunks of 16 B on 4 lanes
+BWD_HEAD_DIMS = [6, 12, 24, 32, 40]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [6, 8, 32, 40])  # 6, 40: chunks padded to 8 or 16 lanes
+@pytest.mark.parametrize("hd", [6, 8, 12, 24, 32, 40])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_backward_matches_plain(cuda, hd, dtype):
     _check_backward(*_inputs(hd, dtype, shapes=BWD_SHAPES))
@@ -284,6 +294,138 @@ def test_backward_matches_plain_at_main_path_levels(cuda, dtype):
 def test_backward_matches_plain_other_counts(cuda, levels, points, dtype):
     shapes = BWD_SHAPES[:levels]
     _check_backward(*_inputs(32, dtype, P=points, shapes=shapes), shapes)
+
+
+def _encoder_locations(shapes, B, H, P, spread, seed=0):
+    """Every pixel centre of every level as a query's reference point, plus
+    the ring offsets a fresh MSDeformAttn starts from (1 to P pixels, head h
+    in direction 2 pi h / H), plus offsets of ``spread`` pixels' standard
+    deviation."""
+    rng = np.random.RandomState(seed)
+    ref = np.concatenate([np.stack(np.meshgrid((np.arange(w) + 0.5) / w,
+                                               (np.arange(h) + 0.5) / h), -1).reshape(-1, 2)
+                          for h, w in shapes])
+    mod = MSDeformAttn(H * 8, len(shapes), H, P)
+    ring = mod.sampling_offsets.bias.detach().numpy().reshape(H, len(shapes), P, 2)
+    wh = np.array([[w, h] for h, w in shapes], np.float32)[None, None, None, :, None, :]
+    offsets = ring[None, None] + spread * rng.randn(B, ref.shape[0], H, len(shapes), P, 2)
+    loc = ref[None, :, None, None, None, :] + offsets / wh
+    return torch.from_numpy(loc.astype(np.float32)).cuda()
+
+
+# power-of-two levels whose finest (65,536 rows) is larger than the
+# backward kernel's window (6,880 rows in bf16, 2,784 in float32)
+SPREAD_SHAPES = [(32, 128), (64, 256), (128, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes,spread", [(MAIN_PATH_SHAPES, 0.0), (SPREAD_SHAPES, 64.0)],
+                         ids=["encoder_start", "spread"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_windows(cuda, shapes, spread, dtype):
+    """Batch 2 over every query of the levels, 8 heads of 32: where a fresh
+    encoder samples at the 1024-px levels (nearly every corner summed in its
+    block's window), and offsets of 64 pixels at levels whose finest is
+    larger than the window (most of its corners miss the window and take
+    the global path)."""
+    B, H, P = 2, 8, 4
+    loc = _encoder_locations(shapes, B, H, P, spread)
+    Lq = loc.shape[1]
+    v, _, a = _inputs(32, dtype, seed=3, B=B, H=H, P=P, Lq=Lq, shapes=shapes)
+    _check_backward(v, loc, a, shapes)
+    share = _counts_on_the_card(v, loc, a, shapes).in_shared_share
+    if spread:
+        assert share[-1] < 0.5
+    else:  # the levels of no more rows than the window fit whole
+        assert share[:2] == (1.0, 1.0) and share[2] > 0.9
+
+
+def _edge_inputs(hd, dtype, Lq=300):
+    """``_inputs`` over 4 heads, with a tenth of the locations moved onto
+    a level's border (0 or 1), where one corner of a pair lies outside the
+    level; 300 queries make a whole run of 256 and a short one."""
+    v, l, a = _inputs(hd, dtype, seed=4, H=4, Lq=Lq, shapes=BWD_SHAPES)
+    edge = torch.from_numpy(np.random.RandomState(5).rand(*l.shape) < 0.1).cuda()
+    return v, torch.where(edge, torch.round(l).clamp(0, 1), l).contiguous(), a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 40])
+@pytest.mark.parametrize("hd", BWD_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_window_cut_and_level_edges(cuda, rows, hd, dtype):
+    """Windows of 1, 7 and 40 rows cut nearly every block's box, so corners
+    fall on both sides of each window's last row and column, and the last
+    run of queries is short; a third of the samples lie on pixel centres
+    (the first and last pixels of a level among them) and some exactly on a
+    level's border."""
+    v, l, a = _edge_inputs(hd, dtype)
+    B, Lq, H = l.shape[:3]
+    plan = _with_window(backward_plan(B, Lq, H, hd, dtype, 4), rows, hd, dtype)
+    _check_backward(v, l, a, plan=plan)
+    counts = _counts_on_the_card(v, l, a, BWD_SHAPES, plan)
+    assert 0 < sum(counts.in_shared) < sum(counts.corners)
+
+
+def _counts_on_the_card(v, l, a, shapes, plan=None):
+    """What the backward kernel did with the value gradient (its counting
+    instantiation, ``count_backward``), held to ``backward_counts``, the
+    host's count from the locations and the plan alone; no launch is
+    counted."""
+    B, Lq, H, _, P, _ = l.shape
+    if plan is None:
+        plan = backward_plan(B, Lq, H, v.shape[-1], v.dtype, P)
+    g = torch.randn((B, Lq, H * v.shape[-1]), device="cuda").to(v.dtype)
+    before = ms_deform_attn_backward.launches
+    got = count_backward(v, shapes, l, a, g, plan)
+    assert ms_deform_attn_backward.launches == before
+    assert got == backward_counts(l, shapes, plan)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "edges", "far_out", "encoder_start", "spread"])
+@pytest.mark.parametrize("hd", BWD_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_counts_match_the_kernel(cuda, kind, hd, dtype):
+    """The kernel's own count of list links, global reductions and flushed
+    rows (per level) equals the host's (``backward_counts``, what
+    chip_smoke.py prints beside it) under the default window and one of 7
+    rows: every corner inside its level is summed once, on chip or in the
+    global path, by every head width (3 chunks a head included)."""
+    if kind in ("encoder_start", "spread"):
+        shapes = MAIN_PATH_SHAPES[:2]
+        l = _encoder_locations(shapes, 2, 4, 4, 0.0 if kind == "encoder_start" else 16.0)
+        v, _, a = _inputs(hd, dtype, seed=3, H=4, Lq=l.shape[1], shapes=shapes)
+    else:
+        shapes = BWD_SHAPES
+        v, l, a = _edge_inputs(hd, dtype)
+        if kind == "far_out":
+            far = np.random.RandomState(2).choice([1e6, -1e6, 3e9, np.inf, np.nan], l.shape)
+            l = torch.from_numpy(far.astype(np.float32)).cuda()
+    B, Lq, H = l.shape[:3]
+    plan = backward_plan(B, Lq, H, hd, dtype, 4)
+    for p in (plan, _with_window(plan, 7, hd, dtype)):
+        counts = _counts_on_the_card(v, l, a, shapes, p)
+        if kind == "far_out":
+            assert sum(counts.corners) == 0 and counts.global_reductions == 0
+        else:
+            assert sum(counts.in_shared) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes,points", [
+    ([(16, 64), (2, 8), (64, 4)], 1),
+    ([(16, 64), (2, 8), (64, 4)], 5),     # a group of 4 points and a group of 1
+    ([(8, 4), (4, 8), (2, 2), (16, 16), (1, 1), (2, 8), (8, 2), (4, 4)], 2),  # 8 levels
+    ([(32, 16)], 8),
+], ids=["1_point", "5_points", "8_levels", "1_level_8_points"])
+@pytest.mark.parametrize("hd", [12, 24, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_matches_plain_generic_levels(cuda, shapes, points, hd, dtype):
+    """Non-square power-of-two levels, 1 to 8 of them, and point counts
+    that are not whole groups of 4."""
+    _check_backward(*_inputs(hd, dtype, P=points, shapes=shapes), shapes)
 
 
 @pytest.mark.cuda
@@ -319,13 +461,21 @@ def test_backward_rejects_what_it_cannot_take(cuda):
         args[i] = _misaligned(args[i])
         with pytest.raises(ValueError, match="16-byte aligned"):
             launch_backward(args[0], BWD_SHAPES, args[1], args[2], args[3])
-    plan = backward_plan(*l.shape[:3], 32, torch.bfloat16)
+    plan = backward_plan(*l.shape[:3], 32, torch.bfloat16, 4)
     assert (plan.threads_per_head, plan.lanes_per_head) == (4, 4)
     with pytest.raises(RuntimeError, match="launch failed"):
         launch_backward(v, BWD_SHAPES, l, a, g, plan._replace(blocks=plan.blocks - 1))
     with pytest.raises(RuntimeError, match="launch failed"):  # not whole warps
         launch_backward(v, BWD_SHAPES, l, a, g, plan._replace(block_threads=96 + 16,
                                                               blocks=10 ** 6))
+    with pytest.raises(RuntimeError, match="launch failed"):  # over 256 threads
+        launch_backward(v, BWD_SHAPES, l, a, g, plan._replace(block_threads=512))
+    with pytest.raises(RuntimeError, match="launch failed"):  # over 227 KB of shared memory
+        launch_backward(v, BWD_SHAPES, l, a, g, plan._replace(window_rows=10 ** 5))
+    with pytest.raises(RuntimeError, match="launch failed"):  # not whole passes of 64
+        launch_backward(v, BWD_SHAPES, l, a, g, plan._replace(queries_per_block=96))
+    with pytest.raises(RuntimeError, match="launch failed"):  # over 65,535 list entries
+        launch_backward(v, BWD_SHAPES, l, a, g, plan._replace(queries_per_block=64 * 100))
     assert ms_deform_attn_backward.launches == before
 
 
@@ -354,5 +504,5 @@ def test_autograd_function_launches_both_kernels(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_backward_resident_warps(cuda, dtype):
-    plan = backward_plan(2, 21504, 8, 32, dtype)
+    plan = backward_plan(2, 21504, 8, 32, dtype, 4)
     assert 4 <= resident_warps(dtype, plan) <= 64
