@@ -64,6 +64,30 @@ Phases, each fatal on failure:
      encoder layer's (reference points plus the ring offsets a new
      MSDeformAttn starts from), each with its global reductions and the
      share of corners it summed on chip.
+  9. the train and eval CLI: ``odise_torch.train_net.main`` on the port's
+     ``configs/Panoptic/odise_label_coco_50e.py`` (FULL CategoryODISE with
+     the CLIP head, float32 as the JAX modules' defaults compute, batch 2 at
+     1024-px LSJ after ``auto_scale_workers`` on one card), on synthetic
+     640-px records registered as ``_smoke_train`` and ``_smoke_val``: (a)
+     4 steps with checkpoints every 2 and the final eval on 2 images (6
+     forward launches per step and per image, 6 backward per step; finite
+     metrics, grad_norm > 0, the frozen towers bitwise equal to a fresh
+     seeded build, 28,591,297 trainable parameters, the checkpoints kept,
+     the extra tasks skipped by name); (b) ``--resume`` to 6 steps, which
+     must start at iteration 4 with the optimizer's count at 4; (c)
+     ``--eval-only --init-from model_final``, whose metrics (PQ, mIoU, AP
+     and the rest) must equal (b)'s final eval;
+ 10. learning: first both kernels against their float64 plain versions at
+     this phase's TINY shapes (float32, 4 heads of 8, batch 4, the category
+     run's levels 4x4 to 16x16 and the caption run's 2x2 to 8x8), and the
+     matcher's auction on the card, its rounds replayed as a CUDA graph,
+     against the CPU's; then ``odise_torch.convergence.run_convergence`` on
+     TINY models, CategoryODISE (100 steps over the serial checkpointed
+     slide) and CaptionODISE (200 steps, grounding over the local batch),
+     held to ``tests/test_convergence.py``'s thresholds: the loss drop, PQ,
+     mIoU and AP after, their rise, and PQ before at chance; after each
+     run both kernels again, on the inputs its first train step gave the
+     first encoder layer.
 Phase 1 also builds the backward kernel and prints its launch plan, shared
 memory and resident warps; phase 2 also holds it against the plain backward
 run in float64, at the main path's levels on random, out-of-range,
@@ -184,18 +208,20 @@ def reference_points(shapes, device="cuda"):
     return torch.cat(ref)
 
 
-def ring_offsets(shapes, points):
+def ring_offsets(shapes, points, heads=HEADS, head_dim=HEAD_DIM):
     """The sampling-offset bias a fresh MSDeformAttn starts from: head h on
     rings of 1 to ``points`` pixels in direction 2 pi h / heads, in each
     level's pixels; [heads, levels, points, 2]."""
     from odise_torch.models.decoder.pixel_decoder import MSDeformAttn
 
-    mod = MSDeformAttn(HEADS * HEAD_DIM, len(shapes), HEADS, points)
-    return mod.sampling_offsets.bias.detach().reshape(HEADS, len(shapes), points, 2)
+    mod = MSDeformAttn(heads * head_dim, len(shapes), heads, points)
+    return mod.sampling_offsets.bias.detach().reshape(heads, len(shapes), points, 2)
 
 
-def deform_inputs(kind, dtype, gen, shapes=SHAPES, batch=1, points=POINTS):
-    """Deformable-attention inputs on the card: 8 heads of 32 over every
+def deform_inputs(kind, dtype, gen, shapes=SHAPES, batch=1, points=POINTS,
+                  heads=HEADS, head_dim=HEAD_DIM):
+    """Deformable-attention inputs on the card: ``heads`` heads of
+    ``head_dim`` (FULL's 8 of 32 by default) over every
     query of the levels ``shapes``, at random, out-of-range or pixel-centre
     locations; or at the encoder's reference points plus the ring offsets
     a fresh MSDeformAttn starts from (``encoder_start``), or plus offsets of
@@ -203,8 +229,8 @@ def deform_inputs(kind, dtype, gen, shapes=SHAPES, batch=1, points=POINTS):
     its window at a level larger than the window (``spread``)."""
     Lq = sum(h * w for h, w in shapes)
     L = len(shapes)
-    value = torch.randn((batch, Lq, HEADS, HEAD_DIM), generator=gen, device="cuda")
-    shape = (batch, Lq, HEADS, L, points, 2)
+    value = torch.randn((batch, Lq, heads, head_dim), generator=gen, device="cuda")
+    shape = (batch, Lq, heads, L, points, 2)
     wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32,
                       device="cuda")[None, None, None, :, None, :]
     if kind == "random":
@@ -217,12 +243,12 @@ def deform_inputs(kind, dtype, gen, shapes=SHAPES, batch=1, points=POINTS):
     else:
         ref = reference_points(shapes)[None, :, None, None, None, :]
         if kind == "encoder_start":
-            offsets = ring_offsets(shapes, points).cuda()[None, None]
+            offsets = ring_offsets(shapes, points, heads, head_dim).cuda()[None, None]
         else:  # spread
             offsets = torch.randn(shape, generator=gen, device="cuda") * 64.0
         loc = (ref + offsets / wh).expand(shape).contiguous()
-    logits = torch.randn((batch, Lq, HEADS, L * points), generator=gen, device="cuda")
-    attn = torch.softmax(logits, -1).reshape(batch, Lq, HEADS, L, points)
+    logits = torch.randn((batch, Lq, heads, L * points), generator=gen, device="cuda")
+    attn = torch.softmax(logits, -1).reshape(batch, Lq, heads, L, points)
     return value.to(dtype), loc, attn.to(dtype)
 
 
@@ -515,30 +541,32 @@ def serve(model, requests, image, train_labels):
     return records
 
 
-def eval_records():
-    """Phase 7's records: one 1024-px synthetic record, and five cut from a
-    640-px one (``CUTS``), with the synthetic classes (cat, dog, grass)
-    mapped onto COCO panoptic's."""
+def coco_cut(rec, rows, cols):
+    """A synthetic record cut to ``rows`` x ``cols``, its classes (cat, dog,
+    grass) mapped onto COCO panoptic's."""
     import numpy as np
 
     from odise_torch.data.build import coco_panoptic_categories
-    from odise_torch.data.synthetic import SYNTH_LABELS, make_shapes_records
+    from odise_torch.data.synthetic import SYNTH_LABELS
 
     names = [c["name"] for c in coco_panoptic_categories()]
     to_coco = np.asarray([names.index(l[0]) for l in SYNTH_LABELS], np.uint8)
+    out = dict(rec, image=rec["image"][:rows, :cols], pan_seg=rec["pan_seg"][:rows, :cols],
+               sem_seg=to_coco[rec["sem_seg"][:rows, :cols]])
+    present = set(np.unique(out["pan_seg"]).tolist())
+    out["segments_info"] = [dict(s, category_id=int(to_coco[s["category_id"]]))
+                            for s in rec["segments_info"] if s["id"] in present]
+    return out
 
-    def cut(rec, rows, cols):
-        out = dict(rec, image=rec["image"][:rows, :cols],
-                   pan_seg=rec["pan_seg"][:rows, :cols],
-                   sem_seg=to_coco[rec["sem_seg"][:rows, :cols]])
-        present = set(np.unique(out["pan_seg"]).tolist())
-        out["segments_info"] = [dict(s, category_id=int(to_coco[s["category_id"]]))
-                                for s in rec["segments_info"] if s["id"] in present]
-        return out
+
+def eval_records():
+    """Phase 7's records: one 1024-px synthetic record, and five cut from a
+    640-px one (``CUTS``), on COCO panoptic's classes."""
+    from odise_torch.data.synthetic import make_shapes_records
 
     big = make_shapes_records(1, size=1024, seed=0)[0]
     small = make_shapes_records(1, size=640, seed=1)[0]
-    return [cut(big, 1024, 1024)] + [cut(small, r, c) for r, c in CUTS]
+    return [coco_cut(big, 1024, 1024)] + [coco_cut(small, r, c) for r, c in CUTS]
 
 
 class Layer0Inputs:
@@ -1235,6 +1263,316 @@ def train_caption():
         raise AssertionError("caption training: grad_norm 0")
 
 
+def launch_counts():
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_backward
+
+    return ms_deform_attn.launches, ms_deform_attn_backward.launches
+
+
+def zero_launch_counts():
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_backward
+
+    ms_deform_attn.launches = ms_deform_attn_backward.launches = 0
+
+
+def cli_run(argv, label):
+    """One ``odise_torch.train_net.main(argv)`` with the launch counts set to
+    0 just before and read just after; its time and peak memory."""
+    from odise_torch import train_net
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = train_net.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train_net {label}: {seconds:.1f} s, peak memory allocated {peak:.2f} GiB, "
+        f"deform-attn launches forward {launches[0]}, backward {launches[1]}")
+    return out, launches, peak, seconds
+
+
+def train_net_phase():
+    """Phase 9: ``python -m odise_torch.train_net``'s main on the port's
+    ``odise_label_coco_50e.py`` at FULL width, on in-memory synthetic
+    records registered as ``_smoke_train`` and ``_smoke_val``: (a) 4 steps,
+    checkpoints every 2, the final eval on 2 images; (b) ``--resume`` to 6
+    steps; (c) ``--eval-only --init-from model_final``, whose PQ, mIoU and AP
+    must equal (b)'s final eval. Returns the numbers PERF.md and the kernels
+    line take."""
+    import os
+    import shutil
+    import statistics
+
+    from odise_torch import train_net
+    from odise_torch.data.build import coco_panoptic_categories
+    from odise_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from odise_torch.data.synthetic import make_shapes_records
+    from odise_torch.engine.checkpoint import Checkpointer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "output", "chip_smoke_train_net")
+    shutil.rmtree(out, ignore_errors=True)
+    for name, seed, n in (("_smoke_train", 0, 4), ("_smoke_val", 5, 2)):
+        records = [coco_cut(r, 640, 640) for r in make_shapes_records(n, size=640, seed=seed)]
+        DatasetCatalog.remove(name)
+        DatasetCatalog.register(name, lambda records=records: records)
+        MetadataCatalog.get(name).set(ignore_label=255, categories=coco_panoptic_categories())
+    common = ["--config-file", os.path.join(root, "odise_torch", "configs", "Panoptic",
+                                            "odise_label_coco_50e.py"),
+              "--output", out, "--max-eval-images", "2"]
+    opts = ["dataloader.train.dataset=_smoke_train", "dataloader.wrapper.dataset_name=_smoke_val",
+            "train.checkpointer.period=2", "train.eval_period=4", "train.log_period=1"]
+    ck_dir = os.path.join(out, "checkpoints")
+    faults = []
+
+    # (a) train 4 steps
+    run, launches_a, peak_a, seconds_a = cli_run(common + opts + ["train.max_iter=4"],
+                                                 "(a) 4 steps")
+    cfg, model = run.cfg, run.model
+    batch = cfg.dataloader.train.total_batch_size
+    size = cfg.dataloader.train.mapper.image_size
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    dtypes = sorted({str(p.dtype)[6:] for p in model.parameters()})
+    log(f"config-built FULL CategoryODISE: {n_train:,} trainable parameters, parameter "
+        f"dtypes {dtypes}, batch {batch} at {size}-px LSJ (auto_scale_workers on 1 card), "
+        f"lr {cfg.optimizer.lr:.4g}, warmup {cfg.optimizer.warmup_steps} steps, "
+        f"milestones {list(cfg.optimizer.milestones)}")
+    ms = [m["time"] * 1e3 for m in run.history]
+    for i, m in enumerate(run.history):
+        log(f"(a) step {i}: {ms[i]:.1f} ms, total_loss {m['total_loss']:.6e}, grad_norm "
+            f"{m['grad_norm']:.4e}, loss_ce {m['loss_ce']:.4f}, loss_mask {m['loss_mask']:.4f}, "
+            f"loss_dice {m['loss_dice']:.4f}")
+    first_ms, warm_ms = ms[0], statistics.median(ms[1:])
+    kept = sorted(os.listdir(ck_dir))
+    last = open(os.path.join(ck_dir, "last_checkpoint")).read()
+    skipped = sorted(set(cfg.extra_task) - set(run.eval_results))
+    main_a = run.eval_results.get("main", {})
+    log(f"(a) first step {first_ms:.1f} ms, warm {warm_ms:.1f} ms (median of steps 2 to 4); "
+        f"checkpoints {kept}, last_checkpoint {last!r} (max_to_keep "
+        f"{cfg.train.checkpointer.max_to_keep}); final eval on {main_a.get('images')} images: "
+        f"PQ {main_a.get('PQ')}, mIoU {main_a.get('mIoU')}, AP {main_a.get('AP')}; extra tasks "
+        f"skipped (datasets not registered): {skipped}")
+    fresh = train_net.build_model(cfg)
+    changed = [n for (n, p), q in zip(model.named_parameters(), fresh.parameters())
+               if not p.requires_grad and not torch.equal(p, q)]
+    n_frozen = sum(1 for p in model.parameters() if not p.requires_grad)
+    log(f"{n_frozen} frozen tensors bitwise equal to a fresh seeded build after 4 steps: "
+        f"{not changed}")
+    faults += [(n_train != 28_591_297, f"{n_train} trainable parameters, not 28,591,297"),
+               (batch != 2 or size != 1024, f"batch {batch} at {size} px, not 2 at 1024"),
+               (launches_a != (6 * (4 + 2), 6 * 4),
+                f"(a) launches {launches_a}, not 6 per step and eval image forward and 6 per "
+                "step backward"),
+               (len(run.history) != 4, f"(a) ran {len(run.history)} steps"),
+               (not all(torch.isfinite(torch.tensor(list(m.values()))).all()
+                        and m["grad_norm"] > 0 for m in run.history),
+                "(a) non-finite metrics or grad_norm 0"),
+               (bool(changed), f"frozen parameters changed: {changed[:5]}"),
+               (kept != ["last_checkpoint", "model_0000001.pth", "model_best.pth",
+                         "model_final.pth"] or last != "model_best", f"(a) checkpoints {kept}"),
+               (skipped != sorted(cfg.extra_task), f"extra tasks evaluated: {skipped}"),
+               (main_a.get("images") != 2, "(a) final eval")]
+    del run, model, fresh
+    # (b) resume to 6 steps
+    run, launches_b, peak_b, seconds_b = cli_run(common + ["--resume"] + opts
+                                                 + ["train.max_iter=6"], "(b) --resume to 6")
+    main_b = run.eval_results.get("main", {})
+    log(f"(b) started at iteration {run.start_iter}, optimizer count after loading "
+        f"{run.start_count}; steps " + ", ".join(
+            f"{m['time'] * 1e3:.1f} ms (total_loss {m['total_loss']:.6e})" for m in run.history)
+        + f"; final eval PQ {main_b.get('PQ')}, mIoU {main_b.get('mIoU')}, "
+        f"AP {main_b.get('AP')}; checkpoints {sorted(os.listdir(ck_dir))}")
+    faults += [((run.start_iter, run.start_count, run.optimizer.count) != (4, 4, 6),
+                f"(b) started at {run.start_iter} with count {run.start_count}"),
+               (launches_b != (6 * (2 + 2), 6 * 2), f"(b) launches {launches_b}")]
+    # on the host, so that (c)'s peak memory is its own
+    tensors_b = {k: t.cpu() for k, t in run.model.state_dict().items()}
+    del run
+    # (c) evaluate model_final
+    results, launches_c, peak_c, seconds_c = cli_run(
+        common + ["--eval-only", "--init-from", os.path.join(ck_dir, "model_final.pth")]
+        + opts, "(c) --eval-only --init-from model_final")
+    main_c = results.get("main", {})
+    # every metric, not only PQ, mIoU and AP (which 6 steps from random
+    # weights may leave at 0); the time per image aside
+    keys = sorted(k for k in main_b if k != "s_per_img")
+    diffs = {k: abs(float(main_c.get(k, float("nan"))) - float(main_b[k])) for k in keys}
+    log(f"(c) PQ {main_c.get('PQ')}, mIoU {main_c.get('mIoU')}, AP {main_c.get('AP')}; "
+        f"nonzero in (b): {({k: round(float(main_b[k]), 4) for k in keys if main_b[k]})}; "
+        f"largest difference from (b)'s final eval over {len(keys)} metrics "
+        f"{max(diffs.values()):.3g} (tolerance 0: the same weights and images through the "
+        "same kernels, whose forward sums in a fixed order)")
+    # what makes (c) score as (b): the model that --eval-only builds and
+    # loads (train_net.main's own two calls) equals (b)'s trained model
+    loaded = train_net.build_model(cfg)
+    Checkpointer(ck_dir).load(os.path.join(ck_dir, "model_final.pth"),
+                              dict(loaded.named_parameters()))
+    unequal = [n for n, t in loaded.state_dict().items()
+               if not torch.equal(t.cpu(), tensors_b[n])]
+    log(f"(c)'s model, built from train.seed and loaded from model_final: "
+        f"{len(tensors_b)} tensors, bitwise equal to (b)'s trained model: {not unequal}")
+    del loaded, tensors_b
+    faults += [(not all(d == 0 for d in diffs.values()),
+                f"(c) differs from (b)'s final eval: {({k: d for k, d in diffs.items() if d})}"),
+               (bool(unequal), f"(c)'s model differs from (b)'s: {unequal[:5]}"),
+               (launches_c != (6 * 2, 0), f"(c) launches {launches_c}")]
+    shutil.rmtree(out, ignore_errors=True)
+    for bad, what in faults:
+        if bad:
+            raise AssertionError(f"train_net phase: {what}")
+    return dict(launches={"a": launches_a, "b": launches_b, "c": launches_c},
+                first_ms=first_ms, warm_ms=warm_ms, peak_gib=max(peak_a, peak_b, peak_c),
+                seconds=[seconds_a, seconds_b, seconds_c], trainable=n_train)
+
+
+def auction_check():
+    """The matcher's auction on the card, on problems built as the matcher
+    builds them at a TINY convergence step's shape (16 problems of 10
+    queries, 8 target slots of which 3 hold a mask, 2 padding columns) and
+    at a FULL step's (20 problems of 100 queries and 100 slots, 5 with a
+    mask): the card's rounds, replayed as a CUDA graph, give the CPU's
+    assignment to the element. Times one call on the card (CUDA events,
+    the graph already captured) with the rounds it ran."""
+    import numpy as np
+
+    from odise_torch.ops.lap import auction_lap
+
+    out = {}
+    for B, N, T, valid in ((16, 10, 8, 3), (20, 100, 100, 5)):
+        cost = np.random.RandomState(N).rand(B, N, T).astype(np.float32)
+        cost[:, :, valid:] = cost[:, :, :valid].max(axis=(1, 2))[:, None, None] + 1.0
+        benefit = -torch.from_numpy(cost)
+        if T < N:
+            lo = benefit.reshape(B, -1).amin(1) - 1.0
+            benefit = torch.cat([benefit, lo[:, None, None].expand(B, N, N - T)], dim=2)
+        dev = benefit.cuda()
+        auction_lap(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        r0 = auction_lap.rounds
+        start.record()
+        got = auction_lap(dev)
+        end.record()
+        end.synchronize()
+        ms, rounds = start.elapsed_time(end), auction_lap.rounds - r0
+        same = torch.equal(got.cpu(), auction_lap(benefit))
+        log(f"auction [{B}, {N}, {N}] ({T} slots, {valid} with a mask) on the card: "
+            f"{ms:.2f} ms for {rounds} rounds ({1e3 * ms / rounds:.2f} us a round); equal "
+            f"to the CPU's: {same}")
+        if not same:
+            raise AssertionError(f"auction [{B}, {N}, {N}]: the card's assignment differs")
+        out[f"{B}x{N}"] = dict(ms=ms, rounds=rounds)
+    return out
+
+
+# phase 10's level shapes (coarsest first) for the TINY models' 4 heads of
+# 8: the category run's 128-px images and the caption run's 64-px ones
+CONVERGENCE_LEVELS = {"category": [(4, 4), (8, 8), (16, 16)],
+                      "caption": [(2, 2), (4, 4), (8, 8)]}
+TINY_HEADS, TINY_HEAD_DIM = 4, 8
+# tests/test_convergence.py's thresholds, unchanged: loss drop (%), then PQ,
+# mIoU and AP after, PQ (and mIoU) rise, PQ before
+CONVERGENCE = {
+    "category": dict(kw=dict(steps=100, lr=2e-3, use_checkpoint=True, slide_training=True,
+                             backbone_in_size=(64, 64), size=128),
+                     drop=40.0, after=dict(PQ=35.0, mIoU=50.0, AP=20.0),
+                     rise=dict(PQ=30.0, mIoU=30.0), before_pq=20.0),
+    "caption": dict(kw=dict(steps=200, lr=2e-3, collect_mode=None),
+                    drop=25.0, after=dict(PQ=25.0, mIoU=40.0, AP=15.0),
+                    rise=dict(PQ=20.0), before_pq=20.0),
+}
+
+
+class FirstTrainInputs:
+    """A forward pre-hook on every module: at the first call of a pixel
+    decoder's encoder layer with gradients on (the first train step's
+    encoder layer 0), the deformable-attention kernel's inputs, computed
+    from that call's arguments with the layer's weights of that moment."""
+
+    def __init__(self):
+        from odise_torch.models.decoder.pixel_decoder import DeformableEncoderLayer
+
+        self.layer_type, self.inputs = DeformableEncoderLayer, None
+        self.hook = torch.nn.modules.module.register_module_forward_pre_hook(self._record)
+
+    def _record(self, mod, args):
+        if self.inputs is None and isinstance(mod, self.layer_type) and torch.is_grad_enabled():
+            src, pos, ref_points, levels = args
+            with torch.no_grad():
+                v, loc, attn = mod.self_attn.sampling_inputs(src + pos, ref_points, src, levels)
+            self.inputs = (v.clone(), loc.clone(), attn.clone(),
+                           [tuple(int(x) for x in lv) for lv in levels])
+
+
+def convergence_phase():
+    """Phase 10: ``odise_torch.convergence.run_convergence`` on the card,
+    both variants, held to the JAX convergence test's thresholds. First
+    both kernels are held to their plain versions at this phase's own
+    shapes (TINY: 4 heads of 8 in float32, batch 4, on the category run's
+    levels and the caption run's, whose coarsest is 2x2, every corner on a
+    border), with ``check_kernel``'s and ``check_backward``'s rule; after
+    each run, again on the inputs its first train step gave the first
+    encoder layer."""
+    from odise_torch.convergence import run_convergence
+    from odise_torch.ops.lap import auction_lap
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    errs = {"fwd": [], "bwd": []}
+    for levels in CONVERGENCE_LEVELS.values():
+        for kind in ("random", "out_of_range", "pixel_centres", "encoder_start"):
+            inputs = deform_inputs(kind, torch.float32, gen, levels, batch=4,
+                                   heads=TINY_HEADS, head_dim=TINY_HEAD_DIM)
+            label = f"{levels}, TINY, batch 4, {kind}, float32"
+            errs["fwd"].append(check_kernel(*inputs, label, levels))
+            errs["bwd"].append(check_backward(*inputs, label, levels, gen)[0])
+    out = {"auction_ms": auction_check()}
+    for variant, spec in CONVERGENCE.items():
+        zero_launch_counts()
+        auction_lap.calls = auction_lap.rounds = 0
+        first = FirstTrainInputs()
+        try:
+            r = run_convergence(variant=variant, batch=4, n_train=32, n_val=8, seed=0,
+                                dataset_name=f"_smoke_conv_{variant}", **spec["kw"])
+        finally:
+            first.hook.remove()
+        launches = launch_counts()
+        v, loc, attn, levels = first.inputs
+        if levels != CONVERGENCE_LEVELS[variant] or tuple(v.shape) != (
+                4, sum(h * w for h, w in levels), TINY_HEADS, TINY_HEAD_DIM):
+            raise AssertionError(f"convergence {variant} ran the kernel at levels {levels}, "
+                                 f"value {tuple(v.shape)}, not this phase's checked shapes")
+        label = f"convergence {variant}, first train step's encoder layer 0"
+        errs["fwd"].append(check_kernel(v, loc, attn, label, levels))
+        errs["bwd"].append(check_backward(v, loc, attn, label, levels, gen)[0])
+        del first, v, loc, attn
+        log(f"convergence {variant}: the matcher's auction ran {auction_lap.calls} times, "
+            f"{auction_lap.rounds} rounds ({auction_lap.rounds / auction_lap.calls:.1f} a "
+            "call; the cap is 2000)")
+        before, after = r["metrics_before"], r["metrics_after"]
+        log(f"convergence {variant}: {r['steps']} steps, {r['sec_per_step'] * 1e3:.1f} ms a "
+            f"step, loss {r['loss_first10_mean']:.4f} -> {r['loss_last10_mean']:.4f} "
+            f"(drop {r['loss_drop_pct']:.2f}%, threshold {spec['drop']}); before PQ "
+            f"{before['PQ']:.2f} mIoU {before['mIoU']:.2f} AP {before['AP']:.2f}; after PQ "
+            f"{after['PQ']:.2f} mIoU {after['mIoU']:.2f} AP {after['AP']:.2f} (thresholds "
+            f"{spec['after']}, rise {spec['rise']}); deform-attn launches forward "
+            f"{launches[0]}, backward {launches[1]}")
+        misses = [f"loss drop {r['loss_drop_pct']:.2f}% < {spec['drop']}"
+                  ] if r["loss_drop_pct"] < spec["drop"] else []
+        misses += [f"{k} {after[k]:.2f} < {v}" for k, v in spec["after"].items() if after[k] < v]
+        misses += [f"{k} rose {after[k] - before[k]:.2f} < {v}"
+                   for k, v in spec["rise"].items() if after[k] < before[k] + v]
+        if not before["PQ"] < spec["before_pq"]:
+            misses.append(f"PQ before {before['PQ']:.2f} >= {spec['before_pq']}")
+        if misses or launches[1] == 0:
+            raise AssertionError(f"convergence {variant} missed: {misses}, launches {launches}")
+        out[variant] = dict(r, launches=launches)
+    out["max_abs_err"] = {k: max(e) for k, e in errs.items()}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA card: torch.cuda.is_available() is false",
@@ -1418,6 +1756,16 @@ def main():
     train_caption()
     phase_done(8)
 
+    # 9. the train and eval CLI at FULL width: train, resume, evaluate
+    cli = train_net_phase()
+    phase_done(9)
+
+    # 10. learning: the synthetic convergence run, both variants
+    conv = convergence_phase()
+    errs.append(conv["max_abs_err"]["fwd"])
+    bwd_errs.append(conv["max_abs_err"]["bwd"])
+    phase_done(10)
+
     log(card_line())
     bwd_plan = backward_plan(2, sum(h * w for h, w in SHAPES), HEADS, HEAD_DIM, torch.bfloat16,
                              POINTS)
@@ -1431,6 +1779,7 @@ def main():
         "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"], "library_ms": None,
         "launches_eval": launches_eval,
         "launches_train": train["launches"][0],
+        "launches_train_net": {k: v[0] for k, v in cli["launches"].items()},
         "in_place_train_ms": train["fwd_in_place_ms"],
         "bucket_shapes_checked": [SHAPES, WIDE, TALL],
         "largest_bucket": largest}, {
@@ -1451,7 +1800,8 @@ def main():
             "direct_reductions", "in_shared_share")},
         "train_batch": 2,
         "train_first_step_ms": train["first_ms"], "train_warm_step_ms": train["warm_ms"],
-        "train_peak_gib": train["peak_gib"]}]}),
+        "train_peak_gib": train["peak_gib"],
+        "launches_train_net": {k: v[1] for k, v in cli["launches"].items()}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

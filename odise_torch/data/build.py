@@ -1,10 +1,10 @@
 """Label vocabularies and prompt templates (counterpart of
 ``odise_tpu/data/build.py``).
 
-The port carries its own copy of the label files it serves
-(``datasets/openseg_labels``: COCO panoptic and ADE20K-150, plain and with
-prompt engineering) and of COCO panoptic's category metadata; the other
-vocabularies the JAX package lists are not copied yet.
+The port carries its own copy of the JAX package's label files
+(``datasets/openseg_labels``: COCO panoptic, ADE20K-150 and -847, Pascal
+Context 59 and 459, Pascal VOC 21 and LVIS 1203, plain and with prompt
+engineering) and of its category metadata (``datasets/metadata``).
 """
 
 from __future__ import annotations

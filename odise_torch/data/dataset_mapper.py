@@ -36,6 +36,8 @@ class COCOPanopticDatasetMapper:
       image [S, S, 3] float32 in [0, 1]; gt_labels [T] int64, gt_masks
       [T, S, S] bool, gt_valid [T] bool; with captions also word_tokens
       [num_words, 77] int64 and word_valid [num_words] bool.
+
+    ``is_train=False`` maps the record without the augmentations.
     """
 
     image_size: int = 1024
@@ -44,6 +46,8 @@ class COCOPanopticDatasetMapper:
     num_words: int = 8
     word_dropout: float = 0.0
     augmentations: Optional[list] = None
+    is_train: bool = True
+    seed: int = 0
     device: Optional[object] = None
 
     def __post_init__(self):
@@ -51,8 +55,10 @@ class COCOPanopticDatasetMapper:
             self.augmentations = default_lsj_augmentations(self.image_size)
         self.device = resolve_device(self.device)
 
-    def __call__(self, record: Dict, rng: np.random.RandomState) -> Dict:
-        """``rng`` draws the augmentations and caption words."""
+    def __call__(self, record: Dict, rng: Optional[np.random.RandomState] = None) -> Dict:
+        """``rng`` draws the augmentations and caption words (default: a
+        fresh one from ``seed``, as in the JAX mapper)."""
+        rng = rng or np.random.RandomState(self.seed)
         dev = self.device
         image = torch.as_tensor(np.asarray(record["image"]), device=dev)
         pan_seg = None
@@ -60,8 +66,9 @@ class COCOPanopticDatasetMapper:
             pan_seg = torch.as_tensor(np.asarray(record["pan_seg"]).astype(np.int64),
                                       device=dev)
         ai = AugInput(image=image, pan_seg=pan_seg)
-        for aug in self.augmentations:
-            ai = aug(ai, rng)
+        if self.is_train:
+            for aug in self.augmentations:
+                ai = aug(ai, rng)
         out: Dict = {"image": ai.image.float() / 255.0}
         pan_seg = ai.pan_seg
         T = self.max_instances

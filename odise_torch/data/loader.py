@@ -1,19 +1,30 @@
-"""The training loader (counterpart of ``odise_tpu/data/loader.py`` for one
+"""Data loaders (counterpart of ``odise_tpu/data/loader.py`` for one
 process): an infinite seeded shuffle of in-memory records, mapped and
 collated into batches, with the JAX loader's sampler and augmentation
 seeds, so that both packages see the same images with the same flips,
-scales and crops."""
+scales and crops; and a sequential test pass.
+
+A dataset is a list of records or the name of one registered in
+``data.catalog.DatasetCatalog``.
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
 
+from .catalog import DatasetCatalog
 from .dataset_mapper import collate
 
-__all__ = ["TrainingSampler", "build_train_loader"]
+__all__ = ["TrainingSampler", "build_test_loader", "build_train_loader"]
+
+Dataset = Union[str, List[dict]]
+
+
+def _records(dataset: Dataset) -> List[dict]:
+    return DatasetCatalog.get(dataset) if isinstance(dataset, str) else dataset
 
 
 class TrainingSampler:
@@ -30,11 +41,25 @@ class TrainingSampler:
             epoch += 1
 
 
-def build_train_loader(records: List[dict], mapper: Callable, batch_size: int,
+def build_train_loader(dataset: Dataset, mapper: Callable, total_batch_size: int,
                        *, seed: int = 42) -> Iterator[Dict[str, torch.Tensor]]:
-    """Yield collated batches, forever, on the mapper's device (CUDA unless
-    the mapper was built with ``device="cpu"``)."""
+    """Yield collated batches of ``total_batch_size``, forever, on the
+    mapper's device (CUDA unless the mapper was built with ``device="cpu"``)."""
+    records = _records(dataset)
     sampler = iter(TrainingSampler(len(records), seed=seed))
     rng = np.random.RandomState(seed * 1000)  # the JAX loader's, for host 0
     while True:
-        yield collate([mapper(records[next(sampler)], rng=rng) for _ in range(batch_size)])
+        yield collate([mapper(records[next(sampler)], rng=rng)
+                       for _ in range(total_batch_size)])
+
+
+def build_test_loader(dataset: Dataset, mapper: Optional[Callable] = None,
+                      batch_size: int = 1, limit: Optional[int] = None) -> Iterator[list]:
+    """One pass over the dataset in order, ``batch_size`` records a list
+    (mapped where a ``mapper`` is given)."""
+    records = _records(dataset)
+    if limit is not None:
+        records = records[:limit]
+    for i in range(0, len(records), batch_size):
+        chunk = records[i:i + batch_size]
+        yield chunk if mapper is None else [mapper(r) for r in chunk]

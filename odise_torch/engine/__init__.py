@@ -1,5 +1,5 @@
-"""Optimizer, train steps and the training loop (counterpart of
-``odise_tpu/engine``; checkpointing and hooks are not ported yet)."""
+"""Optimizer, train steps, the training loop, checkpoints, hooks and the
+default setup (counterpart of ``odise_tpu/engine``)."""
 
 from .optimizer import AdamW, make_optimizer, multistep_lr
 from .train_loop import (

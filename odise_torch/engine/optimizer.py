@@ -70,7 +70,9 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
 class AdamW(torch.optim.Optimizer):
     """optax's ``adamw`` over ``p.grad``. Each param group carries
     ``weight_decay``; ``lr`` is a number or a schedule of the update count.
-    One count serves every parameter, as optax keeps one."""
+    One count serves every parameter, as optax keeps one, and it is part of
+    the state: ``state_dict()`` carries it, so a resumed run goes on with
+    the schedule and the bias corrections where the saved one stopped."""
 
     def __init__(self, params, lr: Union[float, Callable[[int], float]] = 1e-4,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
@@ -78,6 +80,15 @@ class AdamW(torch.optim.Optimizer):
         super().__init__(params, dict(betas=betas, eps=eps, weight_decay=weight_decay))
         self.schedule = lr if callable(lr) else (lambda step: lr)
         self.count = 0
+
+    def state_dict(self) -> dict:
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+        self.count = count
 
     @torch.no_grad()
     def step(self, closure=None):

@@ -187,7 +187,12 @@ class Trainer:
     """Host-side training loop with hooks. ``log_period > 1`` defers reading
     the metrics (the loop's only host sync) to every log_period-th step, so
     the host keeps queueing work; ``check_finite`` still sees every step's
-    metrics. Hooks get (iteration, metrics) at flush time."""
+    metrics. Hooks get (iteration, metrics) at flush time, and a hook whose
+    ``due(iteration)`` is true (a checkpoint or an eval reads the model as
+    that iteration left it) has the pending metrics flushed right after that
+    iteration. Each step's metrics gain ``data_time`` and ``time``, the host
+    time of its flush window divided by its steps, as ``tools/train_net.py``
+    logs it."""
 
     def __init__(self, step_fn: Callable, data_iter, generator: Optional[torch.Generator] = None,
                  hooks: Optional[list] = None, log_period: int = 1):
@@ -200,26 +205,31 @@ class Trainer:
 
     def train(self, start_iter: int, max_iter: int) -> None:
         pending: list = []  # (iteration, data time, device-side metrics)
+        window_t0 = time.perf_counter()
         for it in range(start_iter, max_iter):
             t0 = time.perf_counter()
             batch = next(self.data_iter)
             data_time = time.perf_counter() - t0
             metrics = self.step_fn(batch, self.generator)
             pending.append((it, data_time, metrics))
-            if len(pending) >= self.log_period or it == max_iter - 1:
-                self._flush(pending)
+            if (len(pending) >= self.log_period or it == max_iter - 1
+                    or any(h.due(it) for h in self.hooks if hasattr(h, "due"))):
+                self._flush(pending, window_t0)
+                window_t0 = time.perf_counter()
 
-    def _flush(self, pending: list) -> None:
+    def _flush(self, pending: list, window_t0: float) -> None:
         # one transfer of every pending scalar: a single host sync
         keys = [sorted(dm) for _, _, dm in pending]
         flat = torch.stack([dm[k].float().reshape(()) for (_, _, dm), ks in zip(pending, keys)
                             for k in ks]).tolist()
+        per_step = (time.perf_counter() - window_t0) / len(pending)
         i = 0
         for (pit, data_time, _), ks in zip(pending, keys):
             m = dict(zip(ks, flat[i:i + len(ks)]))
             i += len(ks)
             check_finite(m, pit)
             m["data_time"] = data_time
+            m["time"] = per_step
             self.metrics_history.append(m)
             for h in self.hooks:
                 h(pit, m)

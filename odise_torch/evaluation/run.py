@@ -42,9 +42,11 @@ logger = logging.getLogger(__name__)
 IGNORE_LABEL = 255  # the semantic gt's "no label", as in COCO and ADE20K
 
 
-def prep_record(rec: dict, resize: ResizeShortestEdge, buckets, thing_mask: np.ndarray) -> dict:
-    """Resize and pad the image into its bucket; gather the gt at the
-    original resolution."""
+def prep_record(rec: dict, resize: ResizeShortestEdge, buckets, thing_mask: np.ndarray,
+                semantic_on: bool = True, panoptic_on: bool = True,
+                instance_on: bool = True) -> dict:
+    """Resize and pad the image into its bucket; gather the gt of the tasks
+    that are on at the original resolution."""
     img = np.asarray(rec["image"])
     oh, ow = img.shape[:2]
     image = resize(AugInput(image=torch.from_numpy(img))).image
@@ -54,13 +56,13 @@ def prep_record(rec: dict, resize: ResizeShortestEdge, buckets, thing_mask: np.n
     padded = torch.zeros((1, bh, bw, 3), dtype=torch.float32)
     padded[0, :h, :w] = image.float() / 255.0
 
-    sem_gt = np.asarray(rec["sem_seg"]) if "sem_seg" in rec else None
+    sem_gt = np.asarray(rec["sem_seg"]) if semantic_on and "sem_seg" in rec else None
     gt_ids = gt_segments = None
-    if "segments_info" in rec and "pan_seg" in rec:
+    if (panoptic_on or instance_on) and "segments_info" in rec and "pan_seg" in rec:
         gt_ids = np.asarray(rec["pan_seg"], np.uint32)
         gt_segments = [dict(s) for s in rec["segments_info"]]
     inst_gt_masks = inst_gt_classes = inst_gt_crowd = None
-    if gt_ids is not None:
+    if instance_on and gt_ids is not None:
         things = [s for s in gt_segments if thing_mask[s["category_id"]]]
         inst_gt_masks = (np.stack([gt_ids == s["id"] for s in things]) if things
                          else np.zeros((0, oh, ow), bool))
@@ -76,13 +78,16 @@ def prep_record(rec: dict, resize: ResizeShortestEdge, buckets, thing_mask: np.n
 def evaluate_open_vocab(infer, records: Iterable[dict], *,
                         labels: Sequence[Sequence[str]], thing_mask,
                         device_stats: bool = True, short_side: int = 1024,
-                        max_size: int = 2560) -> Dict[str, float]:
+                        max_size: int = 2560, semantic_on: bool = True,
+                        panoptic_on: bool = True, instance_on: bool = True,
+                        ignore_label: int = IGNORE_LABEL,
+                        task: str = "main") -> Dict[str, float]:
     """Evaluate ``infer`` (images [1, H, W, 3] -> (mask_cls, mask_pred), with
     the fusion settings on ``infer.model``) over ``records`` against a
     vocabulary of ``labels`` with a [K] bool ``thing_mask``. Returns the
     semantic (mIoU, ...), panoptic (PQ, ...) and instance (AP, ...) metrics
-    with ``images``, ``s_per_img`` and, with ``device_stats``,
-    ``host_fallback_images``."""
+    of the tasks that are on, with ``images``, ``s_per_img`` and, with
+    ``device_stats``, ``host_fallback_images``; logs them under ``task``."""
     model = infer.model
     obj_thr = float(model.object_mask_threshold)
     ovl_thr = float(model.overlap_threshold)
@@ -93,20 +98,22 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
     buckets = compute_eval_buckets(short_side, max_size)
     resize = ResizeShortestEdge(short_side, max_size)
 
-    sem_ev = SemSegEvaluator(num_classes=K, ignore_label=IGNORE_LABEL)
+    sem_ev = SemSegEvaluator(num_classes=K, ignore_label=ignore_label)
     pan_ev = PanopticEvaluator(categories=list(range(K)),
                                isthing_map={i: bool(thing_np[i]) for i in range(K)})
     inst_ev = InstanceSegEvaluator(num_classes=K)
     runner = (DeviceEvalRunner(num_classes=K, thing_mask=thing_np,
                                object_mask_threshold=obj_thr,
                                overlap_threshold=ovl_thr, topk=topk,
-                               ignore_label=IGNORE_LABEL)
+                               ignore_label=ignore_label, semantic_on=semantic_on,
+                               panoptic_on=panoptic_on, instance_on=instance_on)
               if device_stats else None)
 
     t_start = time.perf_counter()
     n = n_fallback = 0
     for rec in records:
-        p = prep_record(rec, resize, buckets, thing_np)
+        p = prep_record(rec, resize, buckets, thing_np, semantic_on, panoptic_on,
+                        instance_on)
         mask_cls, mask_pred = infer(p["padded"])
         mask_cls, mask_pred = mask_cls[0], mask_pred[0]
         h, w, oh, ow = p["h"], p["w"], p["oh"], p["ow"]
@@ -157,7 +164,7 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
             # resize probabilities before the argmax
             sem_r = resize_bilinear(sem, sem_gt.shape[0], sem_gt.shape[1])
             sem_ev.process(sem_r.argmax(dim=0).int().cpu().numpy(), sem_gt)
-        if gt_ids is not None and not pan_done:
+        if panoptic_on and gt_ids is not None and not pan_done:
             pan = panoptic_inference(mask_cls, mask_pred, thing_t,
                                      object_mask_threshold=obj_thr,
                                      overlap_threshold=ovl_thr, valid_hw=valid_hw)
@@ -181,7 +188,7 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
                             scores[keeps], inst_gt_masks, inst_gt_classes,
                             inst_gt_crowd)
         if ((sem_gt is not None and not sem_done)
-                or (gt_ids is not None and not pan_done)
+                or (panoptic_on and gt_ids is not None and not pan_done)
                 or (inst_gt_masks is not None and not inst_done)):
             n_fallback += 1
             if runner is not None:
@@ -194,9 +201,12 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
     if runner is not None:
         sem_ev.add_confusion(runner.flush_confusion())
     r = {}
-    r.update(sem_ev.evaluate())
-    r.update(pan_ev.evaluate())
-    r.update(inst_ev.evaluate())
+    if semantic_on:
+        r.update(sem_ev.evaluate())
+    if panoptic_on:
+        r.update(pan_ev.evaluate())
+    if instance_on:
+        r.update(inst_ev.evaluate())
     r["images"] = n
     r["s_per_img"] = dt / max(n, 1)
     if runner is not None:
@@ -204,5 +214,5 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
         if n_fallback:
             logger.warning("%d/%d images took the host eval path (beyond the "
                            "largest grid or the gt-count limits)", n_fallback, n)
-    print_csv_format({"main": r})
+    print_csv_format({task: r})
     return r

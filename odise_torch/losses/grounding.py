@@ -1,13 +1,18 @@
 """Mask-word grounding criterion (counterpart of
-``odise_tpu/losses/grounding.py`` on one device, ``axis_name=None``):
-symmetric image-caption InfoNCE between mask and word embeddings, each
-image-text similarity a softmax-attention pool over the queries.
+``odise_tpu/losses/grounding.py`` on one process): symmetric image-caption
+InfoNCE between mask and word embeddings, each image-text similarity a
+softmax-attention pool over the queries.
+
+``collect_mode`` ("diff", "concat" or None) says how the JAX criterion
+gathers the negatives across devices. On one process every mode means the
+local batch, which is what each computes at world size 1; the port has no
+gather yet and refuses a world size above 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,7 +25,13 @@ __all__ = ["GroundingConfig", "mask_grounding_criterion"]
 @dataclasses.dataclass(frozen=True)
 class GroundingConfig:
     loss_weight: float = 1.0
+    collect_mode: Optional[str] = "diff"
     deep_supervision: bool = True
+
+    def __post_init__(self):
+        if self.collect_mode not in ("diff", "concat", None):
+            raise ValueError(f"collect_mode {self.collect_mode!r} not in "
+                             "('diff', 'concat', None)")
 
 
 def _one_layer_loss(outputs, word_valid_mask, cfg):
@@ -58,6 +69,12 @@ def mask_grounding_criterion(outputs: Dict, word_valid_mask: torch.Tensor,
                              ) -> Dict[str, torch.Tensor]:
     """outputs: mask_embed, word_embed, logit_scale and aux_outputs;
     word_valid_mask [B, K] bool."""
+    if (cfg.collect_mode is not None and torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError(
+            f"collect_mode={cfg.collect_mode!r} across {torch.distributed.get_world_size()} "
+            "processes: the port's grounding loss gathers no negatives yet")
     losses = dict(_one_layer_loss(outputs, word_valid_mask, cfg))
     if cfg.deep_supervision and "aux_outputs" in outputs:
         for i, aux in enumerate(outputs["aux_outputs"]):

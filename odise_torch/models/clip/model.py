@@ -111,6 +111,8 @@ class TextTransformer(nn.Module):
                  embed_dim: int = 768, dtype=torch.float32):
         super().__init__()
         self.token_embedding = nn.Embedding(vocab_size, width, dtype=dtype)
+        # flax's nn.Embed start: a normal of variance 1 / width
+        nn.init.normal_(self.token_embedding.weight, std=width ** -0.5)
         self.positional_embedding = param((context_length, width), std=0.01)
         self.transformer = Transformer(width, layers, heads, dtype)
         self.ln_final = LayerNorm(width, eps=1e-5)

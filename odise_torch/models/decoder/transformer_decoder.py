@@ -116,7 +116,12 @@ class ODISEMultiScaleMaskedTransformerDecoder(nn.Module):
                  dec_layers: int = 9, mask_dim: int = 256,
                  num_classes: int = 133, in_channels: int = 256,
                  num_feature_levels: int = 3, class_embed: nn.Module = None,
-                 post_mask_embed: nn.Module = None, dtype=torch.float32):
+                 post_mask_embed: nn.Module = None, enforce_input_project: bool = False,
+                 dtype=torch.float32):
+        """``class_embed`` is required (the JAX module builds a linear one
+        when it is None)."""
+        if class_embed is None:
+            raise ValueError("the decoder needs a class_embed")
         super().__init__()
         self.hidden_dim, self.dec_layers = hidden_dim, dec_layers
         self.num_feature_levels = num_feature_levels
@@ -134,7 +139,7 @@ class ODISEMultiScaleMaskedTransformerDecoder(nn.Module):
         self.mask_embed_mlp = MLP(hidden_dim, hidden_dim, mask_dim, 3, dtype)
         self.post_mask_embed = post_mask_embed
         self.input_proj = None
-        if in_channels != hidden_dim:
+        if enforce_input_project or in_channels != hidden_dim:
             self.input_proj = add_modules(self, "input_proj_", [
                 Dense(in_channels, hidden_dim, dtype=dtype)
                 for _ in range(num_feature_levels)])

@@ -10,6 +10,14 @@ training holds its trainable weights in float32 as the JAX package does
 (``engine.train_loop.partition_params``). ``LayerNorm`` and ``GroupNorm``
 hold float32 parameters, compute in float32 and return float32, leaving the
 cast back to the caller as the JAX code does.
+
+Parameters start as flax's start them: ``Dense`` and ``Conv`` kernels from
+flax's ``lecun_normal`` (a normal of variance 1 / fan_in cut at two standard
+deviations), biases at zero, where ``torch.nn`` would draw both from a
+uniform of a third of that variance. Where the JAX code starts a kernel at
+zero (the SD UNet's residual branches), the port's module zeroes it too.
+A model built from a seed is then a random draw of the JAX package's own
+distribution; the training recipe's learning rates were tuned on it.
 """
 
 from __future__ import annotations
@@ -26,6 +34,32 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
     return None if t is None else t.to(dtype)
 
 
+# the standard deviation of a unit normal cut at +-2, which flax's
+# truncated-normal initialisers divide by
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's ``lecun_normal``: variance 1 / fan_in, truncated at two
+    standard deviations."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
+def _flax_reset(layer) -> None:
+    lecun_normal_(layer.weight, layer.weight[0].numel())
+    if layer.bias is not None:
+        nn.init.zeros_(layer.bias)
+
+
+def zero_init(layer):
+    """``layer`` with its kernel at zero (flax's ``kernel_init=zeros``)."""
+    with torch.no_grad():
+        layer.weight.zero_()
+    return layer
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``dtype`` (flax ``nn.Dense``)."""
 
@@ -33,6 +67,9 @@ class Dense(nn.Linear):
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias, dtype=dtype)
         self.compute_dtype = dtype
+
+    def reset_parameters(self) -> None:
+        _flax_reset(self)
 
     def forward(self, x):
         cd = self.compute_dtype
@@ -48,6 +85,9 @@ class Conv(nn.Conv2d):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=padding, bias=bias, dtype=dtype)
         self.compute_dtype = dtype
+
+    def reset_parameters(self) -> None:
+        _flax_reset(self)
 
     def forward(self, x):
         cd = self.compute_dtype

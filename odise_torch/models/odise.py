@@ -131,7 +131,8 @@ class _EvalODISE(nn.Module):
     def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
                  head_name: str, head: nn.Module, text_encoder: TextTransformer,
                  clip_head: Optional[PoolingCLIPHead], train_labels: Labels,
-                 num_queries: int):
+                 num_queries: int, object_mask_threshold: float = 0.0,
+                 overlap_threshold: float = 0.8, test_topk_per_image: int = 100):
         super().__init__()
         self.backbone = backbone
         self.sem_seg_head = sem_seg_head
@@ -140,10 +141,10 @@ class _EvalODISE(nn.Module):
         self.text_encoder = text_encoder
         self.train_labels = tuple(train_labels)
         self.num_queries = num_queries
-        # fusion settings the eval loop reads (the JAX models' defaults)
-        self.object_mask_threshold = 0.0
-        self.overlap_threshold = 0.8
-        self.test_topk_per_image = 100
+        # fusion settings the eval loop reads
+        self.object_mask_threshold = object_mask_threshold
+        self.overlap_threshold = overlap_threshold
+        self.test_topk_per_image = test_topk_per_image
 
     def encode_vocab(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [N, 77] -> pooled projected CLIP text embeds [N, D]."""
@@ -186,9 +187,10 @@ class CategoryODISE(_EvalODISE):
     def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
                  category_head: CategoryEmbed, text_encoder: TextTransformer,
                  clip_head: Optional[PoolingCLIPHead] = None,
-                 train_labels: Labels = (), num_queries: int = 100):
+                 train_labels: Labels = (), num_queries: int = 100, **fusion):
+        """``fusion``: the eval settings ``_EvalODISE`` takes by keyword."""
         super().__init__(backbone, sem_seg_head, "category_head", category_head,
-                         text_encoder, clip_head, train_labels, num_queries)
+                         text_encoder, clip_head, train_labels, num_queries, **fusion)
 
     def forward_train(self, images: torch.Tensor, text_embed_raw: torch.Tensor,
                       labels: Optional[Labels] = None) -> Dict:
@@ -249,9 +251,9 @@ class CaptionODISE(_EvalODISE):
     def __init__(self, backbone: nn.Module, sem_seg_head: nn.Module,
                  word_head: WordEmbed, text_encoder: TextTransformer,
                  clip_head: Optional[PoolingCLIPHead] = None,
-                 train_labels: Labels = (), num_queries: int = 100):
+                 train_labels: Labels = (), num_queries: int = 100, **fusion):
         super().__init__(backbone, sem_seg_head, "word_head", word_head,
-                         text_encoder, clip_head, train_labels, num_queries)
+                         text_encoder, clip_head, train_labels, num_queries, **fusion)
 
     def encode_words(self, word_tokens: torch.Tensor) -> torch.Tensor:
         """[B, K, 77] -> [B, K, D] raw CLIP embeds of caption words."""

@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..modules import Conv, Dense, GroupNorm32, LayerNorm, attention
+from ..modules import Conv, Dense, GroupNorm32, LayerNorm, attention, zero_init
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -39,7 +39,7 @@ class ResBlock(nn.Module):
         self.in_conv = Conv(in_channels, out_channels, 3, padding=1, dtype=dtype)
         self.emb_proj = Dense(emb_dim, out_channels, dtype=dtype)
         self.out_norm = GroupNorm32(out_channels, eps=1e-5)
-        self.out_conv = Conv(out_channels, out_channels, 3, padding=1, dtype=dtype)
+        self.out_conv = zero_init(Conv(out_channels, out_channels, 3, padding=1, dtype=dtype))
         self.skip = (Conv(in_channels, out_channels, 1, dtype=dtype)
                      if in_channels != out_channels else None)
 
@@ -115,7 +115,7 @@ class SpatialTransformer(nn.Module):
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(
                 channels, context_dim, heads, dim_head, dtype))
-        self.proj_out = Conv(channels, channels, 1, dtype=dtype)
+        self.proj_out = zero_init(Conv(channels, channels, 1, dtype=dtype))
 
     def forward(self, x, context):
         B, C, H, W = x.shape
@@ -206,7 +206,7 @@ class UNetModel(nn.Module):
                 prev = ch
                 out_idx += 1
         self.out_norm = GroupNorm32(prev, eps=1e-5)
-        self.out_conv = Conv(prev, out_channels, 3, padding=1, dtype=dtype)
+        self.out_conv = zero_init(Conv(prev, out_channels, 3, padding=1, dtype=dtype))
 
     def forward(self, x, timesteps, context,
                 cond_emb: Optional[torch.Tensor] = None,

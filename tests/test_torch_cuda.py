@@ -506,3 +506,30 @@ def test_autograd_function_launches_both_kernels(cuda, dtype):
 def test_backward_resident_warps(cuda, dtype):
     plan = backward_plan(2, 21504, 8, 32, dtype, 4)
     assert 4 <= resident_warps(dtype, plan) <= 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,M,max_iters", [
+    (16, 10, 10, 2000),   # a TINY step's matching: every (layer, image) at once
+    (20, 100, 4, 2000),   # FULL's 100 queries, padding columns
+    (6, 12, 12, 40),      # the cap inside a graph chunk: 2 replays, 8 rounds eagerly
+])
+def test_auction_on_card_equals_cpu(cuda, B, N, M, max_iters):
+    """On the card the auction replays its rounds as a CUDA graph: the
+    assignment equals the CPU's eager rounds', on ties too, and a second
+    call with new costs reuses the graph."""
+    from odise_torch.ops import lap
+
+    rng = np.random.RandomState(B + N + M)
+    hits = lap._rounds_graph.cache_info().hits
+    for trial in range(2):
+        cost = rng.randint(0, 4, (B, N, M)).astype(np.float32) if trial else \
+            rng.rand(B, N, M).astype(np.float32)
+        benefit = -torch.from_numpy(cost)
+        if M < N:
+            lo = benefit.reshape(B, -1).amin(1) - 1.0
+            benefit = torch.cat([benefit, lo[:, None, None].expand(B, N, N - M)], dim=2)
+        card = lap.auction_lap(benefit.cuda(), max_iters=max_iters)
+        cpu = lap.auction_lap(benefit, max_iters=max_iters)
+        assert torch.equal(card.cpu(), cpu)
+    assert lap._rounds_graph.cache_info().hits > hits

@@ -56,8 +56,8 @@ def test_coco_thing_mask_matches_jax_catalog():
     want = np.asarray([bool(c["isthing"]) for c in coco_panoptic_categories()])
     assert thing.dtype == bool and thing.shape == (133,) and thing.sum() == 80
     assert np.array_equal(thing, want)
-    with pytest.raises(FileNotFoundError):
-        build.get_openseg_labels("lvis_1203")  # not copied into the port
+    # every vocabulary of the JAX package is copied into the port
+    assert build.get_openseg_labels("lvis_1203") == jbuild.get_openseg_labels("lvis_1203")
 
 
 def test_buckets_match_jax():

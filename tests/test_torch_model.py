@@ -209,9 +209,10 @@ def test_port_imports_no_jax():
     """With jax, flax, odise_tpu, PIL and cv2 unimportable (the card's
     machine has neither image library): import every odise_torch module,
     build TINY CategoryODISE on the CPU and run forward_eval, evaluate it on
-    one in-memory synthetic record, build TINY CaptionODISE, and take one
-    TINY CategoryODISE train step (mapper, loader, partition, optimizer,
-    Trainer). chip_smoke.py must not import them either."""
+    one in-memory synthetic record, build TINY CaptionODISE, take one TINY
+    CategoryODISE train step (mapper, loader, partition, optimizer,
+    Trainer), load every file of the port's config tree and run the train
+    and eval CLI for one step. chip_smoke.py must not import them either."""
     script = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "flax", "optax", "odise_tpu", "PIL", "cv2"):
@@ -255,11 +256,25 @@ def test_port_imports_no_jax():
                           torch.Generator().manual_seed(0))
         trainer.train(0, 1)
         assert trainer.metrics_history[0]["grad_norm"] > 0
+        import glob, tempfile
+        from odise_torch import train_net
+        from odise_torch.config import load_config
+        configs = sorted(glob.glob("odise_torch/configs/**/*.py", recursive=True))
+        assert len(configs) == 13, configs
+        for path in configs:
+            load_config(path)
+        with tempfile.TemporaryDirectory() as out:
+            run = train_net.main(["--config-file",
+                                  "odise_torch/configs/Panoptic/odise_label_tiny_synth.py",
+                                  "--output", out, "--max-eval-images", "1", "train.device=cpu",
+                                  "train.max_iter=1", "train.eval_period=1"])
+        assert run.history[0]["grad_norm"] > 0 and run.eval_results["main"]["images"] == 1
         assert not any(k.split(".")[0] in ("jax", "flax", "odise_tpu", "PIL", "cv2")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
     """)
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    # one intra-op thread: the suite's parallel processes share the cores
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr
