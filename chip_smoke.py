@@ -87,7 +87,24 @@ Phases, each fatal on failure:
      held to ``tests/test_convergence.py``'s thresholds: the loss drop, PQ,
      mIoU and AP after, their rise, and PQ before at chance; after each
      run both kernels again, on the inputs its first train step gave the
-     first encoder layer.
+     first encoder layer;
+ 11. reference weights (``reference_weights_phase``): SD v1.3, OpenAI CLIP
+     ViT-L/14 with the 336-px head's own state, and a released ODISE
+     checkpoint's trainable set, generated in the reference's key layout
+     from a seed (``tests/test_torch_convert.py``) and loaded through the
+     port's converters: (a) ``model_zoo.get(trained=True)`` from an
+     ``ODISE_MODEL_ZOO`` mirror, its 28,591,297 trainable parameters equal
+     to the converted file, then SD and CLIP installed, the three
+     checkpoints filling every tensor of the model once; (b) FULL
+     CategoryODISE in float32 (TF32 off) against the JAX package's FULL
+     float32 run on the same weights (``tests/data/torch_full_reference
+     .npz``), every stage within its tolerance, 12 kernel launches; (c)
+     ``odise_torch.demo.segment`` in bf16 on the 1024-px pattern image with
+     COCO's 133 labels, then with ``--vocab`` merged in: 6 launches per
+     image, finite outputs, a 1024x1024 map, ids in range, no more
+     segments than queries classified as a label, ms per image first and
+     warm, peak memory; (d) the forward kernel against float64 on
+     the inputs (b) gave the first encoder layer.
 Phase 1 also builds the backward kernel and prints its launch plan, shared
 memory and resident warps; phase 2 also holds it against the plain backward
 run in float64, at the main path's levels on random, out-of-range,
@@ -1573,6 +1590,167 @@ def convergence_phase():
     return out
 
 
+# s5, s4, s3 of one 512-px SD crop, the parity run's levels
+REFERENCE_SHAPES = [(16, 16), (32, 32), (64, 64)]
+DEMO_VOCAB = "black pickup truck, pickup truck; sky"
+
+
+def reference_weights_phase():
+    """Phase 11: weights in the reference's layout (SD v1.3, OpenAI CLIP
+    ViT-L/14 and its 336-px head, a released ODISE checkpoint's trainable
+    set, generated from a seed by ``tests/test_torch_convert.py``) through
+    the port's converters: (a) the model zoo from a local mirror, every
+    tensor of the model from one of the checkpoints; (b) FULL float32
+    parity with the JAX package's stored FULL run, stage by stage; (c) the
+    demo's ``segment`` at FULL in bf16 on the 1024-px pattern image with
+    COCO's labels, then with ``--vocab`` merged in; (d) the forward kernel
+    against float64 on the inputs (b) gave the first encoder layer."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from odise_torch import demo
+    from odise_torch.model_zoo import model_zoo
+    from odise_torch.model_zoo.convert import (clip_install, install, odise_install,
+                                               sd_install)
+    from odise_torch.model_zoo.factory import build_category_odise
+    from odise_torch.model_zoo.from_jax import match_flax_tree
+    from odise_torch.models.wrapper import build_open_vocabulary
+    from odise_torch.ops.ms_deform_attn import ms_deform_attn
+    from tests.test_torch_convert import clip_spec, fill, port_parity, reference_state_dicts
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 parity
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    made = reference_state_dicts("full")
+    dicts = made[0]
+    head_state, _ = fill(clip_spec("full", head=True, text=False))
+    n = sum(v.size for d in (*dicts.values(), head_state) for v in d.values())
+    log(f"reference weights: {n / 1e9:.3f} B values in the reference's layout, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) the model zoo, from a local mirror of the released checkpoint
+    zoo = os.path.join("output", "chip_smoke_zoo")
+    os.makedirs(os.path.join(zoo, "Panoptic"), exist_ok=True)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in dicts["odise"].items()}},
+               os.path.join(zoo, "Panoptic", "odise_label_coco_50e.pth"))
+    saved = os.environ.get("ODISE_MODEL_ZOO")
+    os.environ["ODISE_MODEL_ZOO"] = zoo
+    try:
+        t0 = time.perf_counter()
+        model = model_zoo.get("Panoptic/odise_label_coco_50e.py", trained=True)
+        zoo_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del os.environ["ODISE_MODEL_ZOO"]
+        else:
+            os.environ["ODISE_MODEL_ZOO"] = saved
+        shutil.rmtree(zoo)
+    state = model.state_dict()
+    odise = odise_install(model, dicts["odise"])
+    matched, _ = match_flax_tree(model, odise.tree)
+    differ = [name for name, v in matched
+              if not torch.equal(state[name].cpu(), torch.from_numpy(np.array(v, order="C")))]
+    n_trainable = sum(v.size for _, v in matched)
+    log(f"model_zoo.get(trained=True): {zoo_s:.1f} s; {len(matched)} trainable tensors, "
+        f"{n_trainable:,} parameters, {len(differ)} differ from the converted checkpoint")
+    if differ or n_trainable != 28_591_297 or len(matched) != len(odise.towers):
+        raise AssertionError(f"the zoo's trainable set is not the checkpoint's: {differ[:5]}")
+    t0 = time.perf_counter()
+    names = [name for name, _ in matched]
+    for what in (sd_install(model, dicts["sd"]),
+                 clip_install(model, dicts["clip"], clip_head_state=head_state)):
+        install(model, what)  # raises if a tensor of its towers is left unfilled
+        names += [name for name, _ in match_flax_tree(model, what.tree)[0]]
+    torch.cuda.synchronize()
+    if len(names) != len(set(names)) or set(names) != set(state):
+        raise AssertionError(f"the checkpoints fill {len(set(names))} of the model's "
+                             f"{len(state)} tensors, {len(names) - len(set(names))} twice")
+    log(f"SD and CLIP installed in {time.perf_counter() - t0:.1f} s: the three checkpoints "
+        f"fill all {len(state)} tensors of the model, each once")
+    del state, matched, odise
+
+    # (b) FULL float32 parity with the JAX package, and (d) the kernel on
+    # the inputs it gave the first encoder layer
+    hooked = {}
+
+    def before_capture(m):
+        hooked["layer0"] = Layer0Inputs(m)
+        ms_deform_attn.launches = 0
+
+    t0 = time.perf_counter()
+    errors, agreement, parity_model = port_parity("full", "cuda", made=made, hook=before_capture)
+    parity_launches = ms_deform_attn.launches
+    layer0 = hooked["layer0"]
+    layer0.hook.remove()
+    log(f"FULL float32 parity with the JAX package, 512-px ramp image "
+        f"({time.perf_counter() - t0:.1f} s, {parity_launches} kernel launches):")
+    for key, (err, sum_err, tol) in errors.items():
+        log(f"  {key:16s} max rel err {err:.3e} (tolerance {tol:g}), sum|x| rel err "
+            f"{sum_err:.3e}{'' if err <= tol else '  MISSED'}")
+    log(f"  panoptic map agreement with JAX's: {agreement:.6f} (at least 0.99)")
+    missed = [k for k, (err, _, tol) in errors.items() if not err <= tol]
+    if missed or not agreement >= 0.99 or parity_launches != 12:
+        raise AssertionError(f"FULL parity missed {missed}, agreement {agreement}, "
+                             f"{parity_launches} launches (12 expected)")
+    if layer0.levels[0] != REFERENCE_SHAPES:
+        raise AssertionError(f"the parity run's levels were {layer0.levels[0]}")
+    kernel, (v, _, _) = kernel_on_inputs(layer0, REFERENCE_SHAPES,
+                                         "reference weights, 512 px, float32")
+    if v.dtype != torch.float32:
+        raise AssertionError(f"the parity run ran the kernel in {v.dtype}")
+    del layer0, parity_model, v, made, dicts, head_state
+    torch.cuda.empty_cache()
+
+    # (c) the demo at FULL in bf16 on the zoo model's weights
+    demo_model = build_category_odise("full", dtype=torch.bfloat16)
+    demo_model.load_state_dict(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    image = (pattern_image(1024, "cuda")[0] * 255).round().to(torch.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    demo_runs = []
+    for tag, argv in (("COCO", []), ("COCO and --vocab", ["--vocab", DEMO_VOCAB])):
+        labels, things = demo.build_demo_vocab(demo.parse_args(argv))
+        vocab = build_open_vocabulary(demo_model, labels, thing_mask=things)
+        for run in ("first", "warm"):
+            ms_deform_attn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = demo.segment(demo_model, vocab, image)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            seg, cats = out.panoptic_seg, out.segment_category[:out.num_segments]
+            probs = torch.softmax(out.mask_cls[0].float(), -1)
+            # every segment comes from a query whose class is not null
+            labelled = int((probs.argmax(-1) != len(labels)).sum())
+            ok = (ms_deform_attn.launches == 6 and tuple(seg.shape) == (1024, 1024)
+                  and out.num_segments <= labelled
+                  and bool(torch.isfinite(out.mask_cls).all())
+                  and bool(torch.isfinite(out.mask_pred).all())
+                  and int(seg.min()) >= 0 and int(seg.max()) <= out.num_segments
+                  and bool(((cats >= 0) & (cats < len(labels))).all()))
+            names = [labels[c][0] for c in cats.tolist()]
+            log(f"demo segment [{tag}, K={len(labels)}, {run}]: {ms:.1f} ms, "
+                f"{ms_deform_attn.launches} kernel launches, {out.num_segments} segments "
+                f"{names[:8]}, map {tuple(seg.shape)}; {labelled} of {len(probs)} queries "
+                f"not null (mean null probability {float(probs[:, -1].mean()):.4f}, best "
+                f"label {float(probs[:, :-1].amax(-1).mean()):.4f}), "
+                f"{float((out.mask_pred >= 0).float().mean()):.4f} of mask logits >= 0")
+            if not ok:
+                raise AssertionError(f"the demo's segment failed its checks [{tag}, {run}]")
+            demo_runs.append(dict(vocab=tag, K=len(labels), run=run, ms=ms,
+                                  launches=ms_deform_attn.launches))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"demo peak memory allocated: {peak_gib:.2f} GiB")
+    del demo_model
+    torch.cuda.empty_cache()
+    return dict(kernel=kernel, parity_launches=parity_launches, demo=demo_runs,
+                demo_peak_gib=peak_gib,
+                parity={k: e[0] for k, e in errors.items()}, agreement=agreement)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA card: torch.cuda.is_available() is false",
@@ -1766,6 +1944,12 @@ def main():
     bwd_errs.append(conv["max_abs_err"]["bwd"])
     phase_done(10)
 
+    # 11. the reference's checkpoint layouts: model zoo, FULL parity, demo
+    torch.cuda.empty_cache()
+    ref_w = reference_weights_phase()
+    errs.append(ref_w["kernel"]["max_abs_err"])
+    phase_done(11)
+
     log(card_line())
     bwd_plan = backward_plan(2, sum(h * w for h, w in SHAPES), HEADS, HEAD_DIM, torch.bfloat16,
                              POINTS)
@@ -1780,6 +1964,10 @@ def main():
         "launches_eval": launches_eval,
         "launches_train": train["launches"][0],
         "launches_train_net": {k: v[0] for k, v in cli["launches"].items()},
+        "launches_reference_weights": {"parity": ref_w["parity_launches"],
+                                       "demo": [r["launches"] for r in ref_w["demo"]]},
+        "reference_weights_512px_f32": {k: ref_w["kernel"][k] for k in (
+            "max_abs_err", "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by")},
         "in_place_train_ms": train["fwd_in_place_ms"],
         "bucket_shapes_checked": [SHAPES, WIDE, TALL],
         "largest_bucket": largest}, {

@@ -9,7 +9,7 @@ mechanical by leaf kind: a Dense ``kernel`` [in, out] becomes ``weight``
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +40,49 @@ def flax_leaf_to_torch(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def match_flax_tree(module: nn.Module, tree: Mapping
+                    ) -> Tuple[List[Tuple[str, np.ndarray]], List[str]]:
+    """Match every leaf of a (partial) flax tree to a tensor of ``module``
+    without copying anything.
+
+    Returns ((port name, value in the port's layout) for every leaf, the
+    names of the module's tensors that no leaf matched). Raises ``KeyError``
+    on a leaf that names no port tensor and ``ValueError`` on a leaf whose
+    shape does not fit its tensor, before anything is written.
+    """
+    targets: Dict[str, torch.Tensor] = module.state_dict(keep_vars=True)
+    matched, unused = [], []
+    for path, arr in _leaves(tree):
+        name = flax_to_torch_name(path)
+        target = targets.get(name)
+        if target is None:
+            unused.append("/".join(path))
+            continue
+        value = flax_leaf_to_torch(path, arr)
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(f"{'/'.join(path)}: flax shape {arr.shape} "
+                             f"does not fit {name} {tuple(target.shape)}")
+        matched.append((name, value))
+    if unused:
+        raise KeyError(f"flax leaves with no port tensor: {unused}")
+    filled = {name for name, _ in matched}
+    return matched, sorted(set(targets) - filled)
+
+
+def load_flax_subtree(module: nn.Module, tree: Mapping) -> List[str]:
+    """Fill the tensors of ``module`` that a partial flax tree of numpy
+    arrays names (one tower, the trainable set, ...), in place; returns the
+    names of the module's tensors that the tree left unfilled, so that a
+    caller can check it filled a whole tower. Raises as ``match_flax_tree``,
+    with nothing written."""
+    matched, unfilled = match_flax_tree(module, tree)
+    targets = module.state_dict(keep_vars=True)
+    with torch.no_grad():
+        for name, value in matched:
+            targets[name].copy_(torch.from_numpy(np.array(value, order="C")))
+    return unfilled
+
+
 def load_flax_params(module: nn.Module, params: Mapping) -> None:
     """Fill ``module``'s parameters and persistent buffers from a flax
     ``{"params": ...}`` tree of numpy arrays, in place.
@@ -48,22 +91,6 @@ def load_flax_params(module: nn.Module, params: Mapping) -> None:
     and on a port tensor that no flax leaf filled.
     """
     tree = params["params"] if "params" in params else params
-    targets: Dict[str, torch.Tensor] = module.state_dict(keep_vars=True)
-    unused, filled = [], set()
-    with torch.no_grad():
-        for path, arr in _leaves(tree):
-            name = flax_to_torch_name(path)
-            target = targets.get(name)
-            if target is None:
-                unused.append("/".join(path))
-                continue
-            value = flax_leaf_to_torch(path, arr)
-            if tuple(value.shape) != tuple(target.shape):
-                raise ValueError(f"{'/'.join(path)}: flax shape {arr.shape} "
-                                 f"does not fit {name} {tuple(target.shape)}")
-            target.copy_(torch.from_numpy(np.array(value, order="C")))
-            filled.add(name)
-    missing = sorted(set(targets) - filled)
-    if unused or missing:
-        raise KeyError(f"flax leaves with no port tensor: {unused}; port "
-                       f"tensors not filled: {missing}")
+    missing = load_flax_subtree(module, tree)
+    if missing:
+        raise KeyError(f"port tensors not filled: {missing}")

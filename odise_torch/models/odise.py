@@ -115,6 +115,53 @@ class PoolingCLIPHead(nn.Module):
         return base + novel
 
 
+class CLIPOpenClassEmbed(nn.Module):
+    """Classification head that projects the text or the image modality
+    into a shared space (counterpart of ``odise_tpu/models/odise.py``'s;
+    no shipped config uses it). ``forward(x [B, Q, hidden_dim],
+    text_embed_raw [K_flat, clip_dim])`` -> [B, Q, K(+1)] logits with
+    synonym ensembling over ``labels``, the null column last when
+    ``with_null_embed``."""
+
+    def __init__(self, labels: Labels, hidden_dim: int,
+                 projection_modality: str = "text", with_null_embed: bool = True,
+                 temperature: float = 0.07, ensemble_method: str = "max",
+                 clip_dim: int = 768, dtype=torch.float32):
+        super().__init__()
+        if projection_modality not in ("text", "image"):
+            raise ValueError(f"unknown projection_modality {projection_modality!r}")
+        self.labels = tuple(labels)
+        self.projection_modality = projection_modality
+        self.ensemble_method = ensemble_method
+        self.dtype = dtype
+        self.logit_scale = param((), fill=math.log(1 / temperature))
+        self.null_embed = param((1, clip_dim), std=0.02) if with_null_embed else None
+        if projection_modality == "text":
+            self.embed_projection = Dense(clip_dim, hidden_dim, bias=False, dtype=dtype)
+        else:
+            self.embed_projection = Dense(hidden_dim, clip_dim, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, text_embed_raw: torch.Tensor) -> torch.Tensor:
+        logit_scale = torch.clamp(torch.exp(self.logit_scale), max=100.0)
+        null = self.null_embed
+        if self.projection_modality == "text":
+            text_embed = self.embed_projection(text_embed_raw)
+            if null is not None:
+                null = self.embed_projection(null)
+        else:
+            x = self.embed_projection(x)
+            text_embed = text_embed_raw
+        x = l2_normalize(x)
+        pred = logit_scale * torch.einsum(
+            "bqc,kc->bqk", x, l2_normalize(text_embed).to(x.dtype))
+        pred = ensemble_logits_with_labels(pred, self.labels, self.ensemble_method)
+        if null is None:
+            return pred
+        null_pred = logit_scale * torch.einsum(
+            "bqc,kc->bqk", x, l2_normalize(null).to(x.dtype))
+        return torch.cat([pred, null_pred], dim=-1)
+
+
 def category_overlapping_mask(train_labels, test_labels) -> np.ndarray:
     """[K] int: 1 where a test category shares a synonym with the training
     labels."""
