@@ -73,7 +73,7 @@ Phases, each fatal on failure:
      forward launches per step and per image, 6 backward per step; finite
      metrics, grad_norm > 0, the frozen towers bitwise equal to a fresh
      seeded build, 28,591,297 trainable parameters, the checkpoints kept,
-     the extra tasks skipped by name); (b) ``--resume`` to 6 steps, which
+     the extra tasks skipped, their files absent); (b) ``--resume`` to 6 steps, which
      must start at iteration 4 with the optimizer's count at 4; (c)
      ``--eval-only --init-from model_final``, whose metrics (PQ, mIoU, AP
      and the rest) must equal (b)'s final eval;
@@ -104,7 +104,25 @@ Phases, each fatal on failure:
      image, finite outputs, a 1024x1024 map, ids in range, no more
      segments than queries classified as a label, ms per image first and
      warm, peak memory; (d) the forward kernel against float64 on
-     the inputs (b) gave the first encoder layer.
+     the inputs (b) gave the first encoder layer;
+ 12. datasets from their files (``dataset_phase``): nvJPEG held against
+     PIL's stored decodes of the JPEG fixtures and the demo images (PSNR
+     and mean absolute error, ``tests/torch_jpeg_fixtures.py``) and timed; a
+     COCO-layout dataset written under ``output/chip_smoke_dataset`` (the
+     three 640x480 demo JPEGs as train and val images, seeded panoptic PNGs
+     of COCO things and stuff with a crowd and a void, the semantic PNGs
+     derived from them, the panoptic, instances (integer-vertex polygons,
+     the crowd as compressed RLE) and captions jsons), every label file and
+     instance mask read back equal to what was drawn; the caption split's
+     captions through the caption mapper; ``python -m
+     odise_torch.train_net``'s main in a subprocess with
+     ``DETECTRON2_DATASETS`` on ``configs/Panoptic/odise_label_coco_50e.py``
+     (FULL, float32, batch 2 at 1024-px LSJ): 4 steps and the final eval
+     on ``coco_2017_val_panoptic_with_sem_seg``, 6+6 launches a step and 6
+     an image, finite metrics, the extra tasks skipped with a warning (their
+     files are absent); then the same val records, read by ``image_io`` and
+     held in memory, evaluated here by ``model_final``: every metric equal
+     to the file-backed eval; a main task with absent files raises.
 Phase 1 also builds the backward kernel and prints its launch plan, shared
 memory and resident warps; phase 2 also holds it against the plain backward
 run in float64, at the main path's levels on random, out-of-range,
@@ -1371,7 +1389,7 @@ def train_net_phase():
         f"checkpoints {kept}, last_checkpoint {last!r} (max_to_keep "
         f"{cfg.train.checkpointer.max_to_keep}); final eval on {main_a.get('images')} images: "
         f"PQ {main_a.get('PQ')}, mIoU {main_a.get('mIoU')}, AP {main_a.get('AP')}; extra tasks "
-        f"skipped (datasets not registered): {skipped}")
+        f"skipped (their files are absent): {skipped}")
     fresh = train_net.build_model(cfg)
     changed = [n for (n, p), q in zip(model.named_parameters(), fresh.parameters())
                if not p.requires_grad and not torch.equal(p, q)]
@@ -1751,6 +1769,374 @@ def reference_weights_phase():
                 parity={k: e[0] for k, e in errors.items()}, agreement=agreement)
 
 
+# phase 12: COCO's things and stuff the generated dataset draws (dataset ids)
+DATASET_THINGS = (1, 2, 3, 17, 18)    # person, bicycle, car, cat, dog
+DATASET_STUFF = (187, 199, 193)       # sky, wall, grass: bands top to bottom
+DEMO_JPEGS = ("ade", "coco", "ego4d")  # demo/examples/*.jpg, 640x480, COCO's size
+# the CLI's main in a subprocess, as ``python -m odise_torch.train_net`` runs
+# it, with the kernels' launch counts set to 0 before and written out after
+CLI_RUNNER = """
+import json, sys, time
+import torch
+from odise_torch import train_net
+from odise_torch.data.image_io import decode_jpeg_cuda
+from odise_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_backward
+ms_deform_attn.launches = ms_deform_attn_backward.launches = 0
+t0 = time.perf_counter()
+run = train_net.main(sys.argv[2:])
+torch.cuda.synchronize()
+with open(sys.argv[1], "w") as f:
+    json.dump({"seconds": time.perf_counter() - t0, "history": run.history,
+               "eval": run.eval_results, "jpeg_decodes": decode_jpeg_cuda.decodes,
+               "launches": [ms_deform_attn.launches, ms_deform_attn_backward.launches],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}, f, default=float)
+"""
+
+
+def draw_coco_image(rng, image_id, h=480, w=640):
+    """Panoptic segments for one image: three stuff bands, a thing polygon
+    (integer vertices) in each of four cells of a 3x2 grid, a crowd blob in
+    another, and a void square. Returns the id map, its segments_info, and
+    the instance annotations with the masks they were drawn from."""
+    import numpy as np
+
+    from odise_torch.data.coco_mask import mask_to_rle, polygons_to_mask
+
+    ids = np.zeros((h, w), np.uint32)
+    cuts = sorted(rng.randint(h // 5, 4 * h // 5, 2))
+    segments, anns = [], []
+    for k, (cat, y0, y1) in enumerate(zip(DATASET_STUFF, [0] + cuts, cuts + [h])):
+        sid = 1 + 70001 * (k + 1) % 2 ** 24  # ids that use all three RGB channels
+        ids[y0:y1] = sid
+        segments.append({"id": sid, "category_id": cat, "iscrowd": 0})
+    cells = rng.permutation(6)
+    for k, cell in enumerate(cells[:5]):
+        cy, cx = (cell // 3) * (h // 2) + h // 4, (cell % 3) * (w // 3) + w // 6
+        crowd = k == 4
+        if crowd:
+            yy, xx = np.mgrid[:h, :w]
+            mask = ((yy - cy) / 70.0) ** 2 + ((xx - cx) / 90.0) ** 2 <= 1
+            seg = mask_to_rle(mask)
+        else:
+            n = rng.randint(5, 12)
+            angle = np.sort(rng.rand(n)) * 2 * np.pi
+            radius = rng.uniform(30, 100, n)
+            poly = np.stack([cx + radius * np.cos(angle), cy + 0.9 * radius * np.sin(angle)], 1)
+            seg = [np.round(poly).reshape(-1).astype(float).tolist()]
+            mask = polygons_to_mask(seg, h, w)
+        sid = 1 + 9973 * (k + 11) % 2 ** 24
+        ids[mask] = sid
+        cat = DATASET_THINGS[k]
+        segments.append({"id": sid, "category_id": cat, "iscrowd": int(crowd)})
+        anns.append({"id": image_id * 100 + k, "image_id": image_id, "category_id": cat,
+                     "iscrowd": int(crowd), "segmentation": seg, "mask": mask})
+    y, x = rng.randint(0, h - 24), rng.randint(0, w - 24)
+    ids[y:y + 24, x:x + 24] = 0  # void
+    for s in segments:
+        m = ids == s["id"]
+        ys, xs = np.nonzero(m)
+        s["area"] = int(m.sum())
+        s["bbox"] = [int(xs.min()), int(ys.min()), int(np.ptp(xs)) + 1, int(np.ptp(ys)) + 1]
+    return ids, [s for s in segments if s["area"]], anns
+
+
+def write_coco_dataset(root):
+    """The COCO layout ``register_coco.py`` reads, under ``root``: the demo
+    JPEGs as {train,val}2017 images, panoptic PNGs, the semantic PNGs derived
+    from them as ``datasets/prepare_coco_semantic_annos_from_panoptic_annos
+    .py`` derives them, the panoptic, instances and captions jsons. Returns
+    what was written, for the read-back checks."""
+    import os
+
+    import numpy as np
+
+    from odise_torch.data.build import coco_panoptic_categories
+    from odise_torch.data.datasets.register_coco import coco_meta
+    from odise_torch.data.image_io import write_png
+    from odise_torch.data.transforms import id2rgb
+
+    meta = coco_meta()
+    to_contiguous = meta["stuff_dataset_id_to_contiguous_id"]
+    coco = os.path.join(root, "coco")
+    demo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo", "examples")
+    written = {}
+    for split, base in (("train", 0), ("val", 100)):
+        for d in (f"{split}2017", f"panoptic_{split}2017", f"panoptic_semseg_{split}2017",
+                  "annotations"):
+            os.makedirs(os.path.join(coco, d), exist_ok=True)
+        rng = np.random.RandomState(base + 12)
+        images, pan_anns, inst_anns, captions = [], [], [], []
+        for k, name in enumerate(DEMO_JPEGS):
+            image_id = base + k
+            stem = f"{image_id:012d}"
+            src = os.path.join(demo, f"{name}.jpg")
+            dst = os.path.join(coco, f"{split}2017", stem + ".jpg")
+            with open(src, "rb") as f, open(dst, "wb") as g:
+                g.write(f.read())
+            ids, segments, anns = draw_coco_image(rng, image_id)
+            sem = np.full(ids.shape, 255, np.uint8)
+            for s in segments:
+                sem[ids == s["id"]] = to_contiguous[s["category_id"]]
+            write_png(os.path.join(coco, f"panoptic_{split}2017", stem + ".png"), id2rgb(ids))
+            write_png(os.path.join(coco, f"panoptic_semseg_{split}2017", stem + ".png"), sem)
+            images.append({"id": image_id, "file_name": stem + ".jpg", "height": 480,
+                           "width": 640})
+            pan_anns.append({"image_id": image_id, "file_name": stem + ".png",
+                             "segments_info": segments})
+            inst_anns += [{k2: v for k2, v in a.items() if k2 != "mask"} for a in anns]
+            captions += [{"id": 2 * image_id + j, "image_id": image_id, "caption": c}
+                         for j, c in enumerate((f"a {name} scene with a person and a dog",
+                                                "a car under the sky"))]
+            written[(split, image_id)] = dict(ids=ids, sem=sem, anns=anns)
+        cats = coco_panoptic_categories()
+        for fname, obj in ((f"panoptic_{split}2017.json",
+                            {"images": images, "annotations": pan_anns, "categories": cats}),
+                           (f"instances_{split}2017.json",
+                            {"images": images, "annotations": inst_anns,
+                             "categories": [c for c in cats if c["isthing"]]})):
+            with open(os.path.join(coco, "annotations", fname), "w") as f:
+                json.dump(obj, f)
+        if split == "train":
+            with open(os.path.join(coco, "annotations", "captions_train2017.json"), "w") as f:
+                json.dump({"images": images, "annotations": captions}, f)
+    return written
+
+
+def check_nvjpeg():
+    """nvJPEG against PIL's stored decodes of the JPEG fixtures and the demo
+    images (``tests/data/torch_jpeg_reference.npz``), and its decode time
+    per 640x480 demo JPEG, logged."""
+    from odise_torch.data.image_io import decode_jpeg_cuda
+    from tests.torch_jpeg_fixtures import MEAN_ABS_MAX, PSNR_MIN_DB, jpeg_gap, load
+
+    cases, pil_version = load()
+    misses = []
+    for case, (data, want) in cases.items():
+        got = decode_jpeg_cuda(data, "cuda").cpu().numpy()
+        if got.shape != want.shape:
+            misses.append(f"{case}: shape {got.shape}, PIL {want.shape}")
+            continue
+        gap = jpeg_gap(got, want)
+        log(f"nvJPEG vs PIL {pil_version} {case} {want.shape}: PSNR {gap['psnr_db']:.2f} dB, "
+            f"mean abs {gap['mean_abs']:.4f} (per channel "
+            f"{[round(v, 4) for v in gap['mean_abs_channel']]}), max abs per channel "
+            f"{gap['max_abs_channel']}")
+        if not (gap["psnr_db"] >= PSNR_MIN_DB and gap["mean_abs"] <= MEAN_ABS_MAX):
+            misses.append(f"{case}: {gap}")
+    if misses:
+        raise AssertionError(f"nvJPEG misses PSNR >= {PSNR_MIN_DB} dB or mean abs <= "
+                             f"{MEAN_ABS_MAX} against PIL: {misses}")
+    ms = {}
+    for name in DEMO_JPEGS:
+        data = cases[f"demo/{name}"][0]
+        decode_jpeg_cuda(data, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            decode_jpeg_cuda(data, "cuda")
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+    log(f"nvJPEG decode, host clock to a synchronize, warm, 20 each: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+
+
+def dataset_phase():
+    """Phase 12: the shipped COCO recipe from files at FULL. A COCO-layout
+    dataset from the demo JPEGs and seeded panoptic segments is written and
+    read back; ``python -m odise_torch.train_net``'s main on
+    ``odise_label_coco_50e.py`` in a subprocess with ``DETECTRON2_DATASETS``
+    set trains 4 steps and evaluates on ``coco_2017_val_panoptic_with_sem_seg``;
+    then the same val records, their files read by ``image_io`` and held in
+    memory, are evaluated in this process by the same weights, and must
+    score the same."""
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from odise_torch import train_net
+    from odise_torch.config import apply_overrides, auto_scale_workers, instantiate, load_config
+    from odise_torch.config import resolve
+    from odise_torch.data.coco_mask import annotations_to_masks
+    from odise_torch.data.dataset_mapper import COCOPanopticDatasetMapper
+    from odise_torch.data.datasets.register_coco import (coco_meta, load_coco_panoptic_json,
+                                                         load_instance_gt_index)
+    from odise_torch.data.image_io import read_image, read_label, read_rgb_png
+    from odise_torch.data.transforms import ResizeShortestEdge, rgb2id
+    from odise_torch.engine.checkpoint import Checkpointer
+    from odise_torch.evaluation.buckets import compute_eval_buckets
+    from odise_torch.evaluation.run import evaluate_open_vocab, prep_record
+    from odise_torch.models.wrapper import OpenPanopticInference
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "output", "chip_smoke_dataset")
+    out = os.path.join(root, "run")
+    shutil.rmtree(root, ignore_errors=True)
+    faults = []
+    check_nvjpeg()
+
+    t0 = time.perf_counter()
+    written = write_coco_dataset(root)
+    log(f"wrote the COCO-layout dataset ({len(written)} images) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # every label file and instance mask read back
+    meta = coco_meta()
+    coco = os.path.join(root, "coco")
+    for split in ("train", "val"):
+        index = load_instance_gt_index(os.path.join(coco, "annotations",
+                                                    f"instances_{split}2017.json"),
+                                       meta["thing_dataset_id_to_contiguous_id"])
+        for (s, image_id), w in written.items():
+            if s != split:
+                continue
+            stem = f"{image_id:012d}.png"
+            ids = rgb2id(read_rgb_png(os.path.join(coco, f"panoptic_{split}2017", stem)))
+            sem = read_label(os.path.join(coco, f"panoptic_semseg_{split}2017", stem))
+            masks = annotations_to_masks(index[image_id], 480, 640)
+            drawn = np.stack([a["mask"] for a in w["anns"]])
+            faults += [(not np.array_equal(ids, w["ids"]), f"panoptic PNG {split} {stem}"),
+                       (not np.array_equal(sem, w["sem"]), f"semantic PNG {split} {stem}"),
+                       (not np.array_equal(masks, drawn), f"instance masks {split} {stem}")]
+    t0 = time.perf_counter()
+    for _ in range(5):
+        read_rgb_png(os.path.join(coco, "panoptic_val2017", "000000000100.png"))
+    png_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"label files read back equal to what was written: "
+        f"{not any(bad for bad, _ in faults)}; a 640x480 panoptic PNG decodes on the host in "
+        f"{png_ms:.1f} ms")
+
+    # the caption split carries captions, and the caption mapper reads them
+    cap = load_coco_panoptic_json(
+        os.path.join(coco, "annotations", "panoptic_train2017.json"),
+        os.path.join(coco, "train2017"), os.path.join(coco, "panoptic_train2017"),
+        os.path.join(coco, "panoptic_semseg_train2017"), meta,
+        caption_json=os.path.join(coco, "annotations", "captions_train2017.json"))
+    mapped = COCOPanopticDatasetMapper(with_captions=True, device="cuda")(cap[0])
+    faults += [(len(cap[0].get("captions", ())) != 2, "caption records"),
+               (not bool(mapped["word_valid"].any()) or mapped["word_tokens"].shape[-1] != 77,
+                "the caption mapper's word_tokens")]
+    log(f"caption split: {cap[0]['captions']} -> word_tokens "
+        f"{tuple(mapped['word_tokens'].shape)}, {int(mapped['word_valid'].sum())} valid words")
+    del mapped
+
+    # the CLI in a subprocess, on the files
+    config = os.path.join(here, "odise_torch", "configs", "Panoptic", "odise_label_coco_50e.py")
+    opts = ["train.max_iter=4", "train.log_period=1"]
+    argv = ["--config-file", config, "--output", out] + opts
+    result_file = os.path.join(root, "cli.json")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_RUNNER, result_file] + argv, cwd=here,
+                          env=dict(os.environ, DETECTRON2_DATASETS=root),
+                          capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train_net on the files failed:\n{proc.stderr[-4000:]}")
+    with open(result_file) as f:
+        cli = json.load(f)
+    text = proc.stdout + proc.stderr
+    skipped = [t for t in ("eval_ade150", "eval_ctx59", "eval_ade847", "eval_ctx459",
+                           "eval_pas21") if f"Skipping task {t}" in text]
+    ms = [m["time"] * 1e3 for m in cli["history"]]
+    host_share = [m["data_time"] / m["time"] for m in cli["history"]]
+    main = cli["eval"].get("main", {})
+    log(f"train_net on the files (subprocess, {cli_s:.1f} s, main {cli['seconds']:.1f} s): "
+        f"steps " + ", ".join(f"{t:.1f} ms (total_loss {m['total_loss']:.6e}, grad_norm "
+                               f"{m['grad_norm']:.4e}, data {m['data_time'] * 1e3:.1f} ms)"
+                               for t, m in zip(ms, cli["history"]))
+        + f"; final eval on {main.get('images')} images, {main.get('s_per_img', 0) * 1e3:.1f} "
+        f"ms an image: PQ {main.get('PQ')}, mIoU {main.get('mIoU')}, AP {main.get('AP')}; "
+        f"deform-attn launches forward {cli['launches'][0]}, backward {cli['launches'][1]}; "
+        f"nvJPEG decodes {cli['jpeg_decodes']}; peak memory allocated {cli['peak_gib']:.2f} GiB; "
+        f"extra tasks skipped with a warning: {skipped}")
+    n_val = sum(1 for s, _ in written if s == "val")
+    faults += [(len(cli["history"]) != 4, f"{len(cli['history'])} steps"),
+               (not all(np.isfinite(m["total_loss"]) and m["grad_norm"] > 0
+                        for m in cli["history"]), "non-finite loss or grad_norm 0"),
+               (cli["launches"] != [6 * (4 + n_val), 6 * 4],
+                f"launches {cli['launches']}, not 6 per step and eval image and 6 per step "
+                "backward"),
+               (sorted(cli["eval"]) != ["main"] or main.get("images") != n_val,
+                f"evaluated {sorted(cli['eval'])}"),
+               (not all(np.isfinite(main.get(k, float("nan"))) for k in ("PQ", "mIoU", "AP")),
+                "non-finite PQ, mIoU or AP"),
+               (len(skipped) != 5, f"extra tasks skipped: {skipped}"),
+               (cli["jpeg_decodes"] < 2 * 4 + n_val,
+                f"{cli['jpeg_decodes']} nvJPEG decodes")]
+
+    # the same val records in memory, through the same weights, in this process
+    cfg = load_config(config)
+    cfg.train.output_dir = out
+    cfg = auto_scale_workers(cfg, 1)
+    apply_overrides(cfg, opts)
+    cfg = resolve(cfg)
+    model = train_net.build_model(cfg)
+    Checkpointer(os.path.join(out, "checkpoints")).load(
+        os.path.join(out, "checkpoints", "model_final.pth"), dict(model.named_parameters()))
+    val = load_coco_panoptic_json(
+        os.path.join(coco, "annotations", "panoptic_val2017.json"),
+        os.path.join(coco, "val2017"), os.path.join(coco, "panoptic_val2017"),
+        os.path.join(coco, "panoptic_semseg_val2017"), meta)
+    memory = [{"image": read_image(r["file_name"], "cuda").cpu().numpy(),
+               "pan_seg": rgb2id(read_rgb_png(r["pan_seg_file_name"])),
+               "sem_seg": read_label(r["sem_seg_file_name"]),
+               "segments_info": r["segments_info"], "image_id": r["image_id"]} for r in val]
+    wrapper = instantiate(cfg.dataloader.wrapper)
+    vocab = train_net.build_vocab_and_thing_mask(model, wrapper, model.train_labels)
+    thing = vocab.thing_mask.cpu().numpy()
+    short, longest = (cfg.dataloader.get("eval_short_side", 1024),
+                      cfg.dataloader.get("eval_max_size", 2560))
+    index = load_instance_gt_index(os.path.join(coco, "annotations", "instances_val2017.json"),
+                                   meta["thing_dataset_id_to_contiguous_id"])
+    # what the evaluation prepares from each file record: the same padded
+    # image and ground truth as from its record in memory
+    prep = [[prep_record(r, ResizeShortestEdge(short, longest), compute_eval_buckets(short,
+                                                                                    longest),
+                         thing, device="cuda", inst_gt_index=index) for r in recs]
+            for recs in (val, memory)]
+    def same(a, b):
+        if torch.is_tensor(a):
+            return torch.equal(a, b)
+        return np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+
+    unequal = [(i, k) for i, (a, b) in enumerate(zip(*prep)) for k in a if not same(a[k], b[k])]
+    log(f"prepared inputs and gt of {len(val)} val images from files equal to those from "
+        f"memory: {not unequal}")
+    faults.append((bool(unequal), f"prepared from files and from memory differ: {unequal}"))
+    zero_launch_counts()
+    in_memory = evaluate_open_vocab(
+        OpenPanopticInference(model, vocab), memory, labels=vocab.labels, thing_mask=thing,
+        short_side=short, max_size=longest, inst_gt_index=index, task="in_memory")
+    launches_memory = launch_counts()
+    keys = sorted(k for k in main if k != "s_per_img")
+    diffs = {k: abs(float(in_memory.get(k, float("nan"))) - float(main[k])) for k in keys}
+    log(f"in memory, this process: PQ {in_memory['PQ']}, mIoU {in_memory['mIoU']}, AP "
+        f"{in_memory['AP']}, {in_memory['s_per_img'] * 1e3:.1f} ms an image, launches "
+        f"{launches_memory}; largest difference from the file-backed eval over {len(keys)} "
+        f"metrics {max(diffs.values()):.3g} (tolerance 0)")
+    faults += [(any(d != 0 for d in diffs.values()),
+                f"file-backed eval differs from in memory: {({k: d for k, d in diffs.items() if d})}"),
+               (launches_memory != (6 * n_val, 0), f"in-memory eval launches {launches_memory}")]
+
+    # a main task whose files are absent raises before evaluating
+    cfg.dataloader.wrapper["dataset_name"] = "ade20k_panoptic_val"
+    cfg.extra_task = {}
+    try:
+        train_net.do_test(cfg, model)
+        faults.append((True, "a main task with absent files was evaluated"))
+    except FileNotFoundError as err:
+        log(f"a main task with absent files raises: {type(err).__name__}: {err}")
+    del model
+    shutil.rmtree(root, ignore_errors=True)
+    for bad, what in faults:
+        if bad:
+            raise AssertionError(f"dataset phase: {what}")
+    return dict(launches=cli["launches"], first_ms=ms[0], warm_ms=statistics.median(ms[1:]),
+                host_share=statistics.median(host_share[1:]), peak_gib=cli["peak_gib"],
+                s_per_img=main["s_per_img"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA card: torch.cuda.is_available() is false",
@@ -1950,6 +2336,15 @@ def main():
     errs.append(ref_w["kernel"]["max_abs_err"])
     phase_done(11)
 
+    # 12. the shipped COCO recipe from files: train and evaluate through the CLI
+    torch.cuda.empty_cache()
+    data = dataset_phase()
+    log(f"phase 12: first step {data['first_ms']:.1f} ms, warm {data['warm_ms']:.1f} ms "
+        f"(median of steps 2 to 4), loader's host share of a warm step "
+        f"{data['host_share']:.3f}, {data['s_per_img'] * 1e3:.1f} ms an eval image, peak "
+        f"{data['peak_gib']:.2f} GiB")
+    phase_done(12)
+
     log(card_line())
     bwd_plan = backward_plan(2, sum(h * w for h, w in SHAPES), HEADS, HEAD_DIM, torch.bfloat16,
                              POINTS)
@@ -1964,6 +2359,7 @@ def main():
         "launches_eval": launches_eval,
         "launches_train": train["launches"][0],
         "launches_train_net": {k: v[0] for k, v in cli["launches"].items()},
+        "launches_dataset_train_net": data["launches"][0],
         "launches_reference_weights": {"parity": ref_w["parity_launches"],
                                        "demo": [r["launches"] for r in ref_w["demo"]]},
         "reference_weights_512px_f32": {k: ref_w["kernel"][k] for k in (
@@ -1989,7 +2385,8 @@ def main():
         "train_batch": 2,
         "train_first_step_ms": train["first_ms"], "train_warm_step_ms": train["warm_ms"],
         "train_peak_gib": train["peak_gib"],
-        "launches_train_net": {k: v[1] for k, v in cli["launches"].items()}}]}),
+        "launches_train_net": {k: v[1] for k, v in cli["launches"].items()},
+        "launches_dataset_train_net": data["launches"][1]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,15 @@
 """The training mapper: record -> fixed-shape tensors (counterpart of
 ``odise_tpu/data/dataset_mapper.py``).
 
-Records are held in memory (``image`` [H, W, 3] uint8 and ``pan_seg``
-[H, W] segment ids, as ``data/synthetic.make_shapes_records`` makes them);
-the port decodes no image files. The LSJ augmentations run on the mapper's
-device, and the targets are built there: per segment a binary mask, padded
-to ``max_instances`` with a validity flag, as the JAX mapper pads them.
+A record holds its image and panoptic ids in memory (``image`` [H, W, 3]
+uint8 and ``pan_seg`` [H, W] segment ids, as
+``data/synthetic.make_shapes_records`` makes them) or names their files
+(``file_name``, read by ``image_io.read_image`` onto the mapper's device,
+and ``pan_seg_file_name``, an RGB PNG read by ``read_rgb_png`` and
+``rgb2id``), as the registered datasets do. The LSJ augmentations run on
+the mapper's device, and the targets are built there: per segment a binary
+mask, padded to ``max_instances`` with a validity flag, as the JAX mapper
+pads them.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 
 from ..model_zoo.factory import resolve_device
 from ..models.clip.tokenizer import tokenize
-from .transforms import AugInput, FixedSizeCrop, RandomFlip, ResizeScale
+from .image_io import read_image, read_rgb_png
+from .transforms import AugInput, FixedSizeCrop, RandomFlip, ResizeScale, rgb2id
 
 __all__ = ["COCOPanopticDatasetMapper", "collate", "default_lsj_augmentations"]
 
@@ -60,11 +65,17 @@ class COCOPanopticDatasetMapper:
         fresh one from ``seed``, as in the JAX mapper)."""
         rng = rng or np.random.RandomState(self.seed)
         dev = self.device
-        image = torch.as_tensor(np.asarray(record["image"]), device=dev)
+        if "image" in record:
+            image = torch.as_tensor(np.asarray(record["image"]), device=dev)
+        else:
+            image = read_image(record["file_name"], dev)
         pan_seg = None
         if "pan_seg" in record:
-            pan_seg = torch.as_tensor(np.asarray(record["pan_seg"]).astype(np.int64),
-                                      device=dev)
+            pan_seg = np.asarray(record["pan_seg"])
+        elif "pan_seg_file_name" in record:
+            pan_seg = rgb2id(read_rgb_png(record["pan_seg_file_name"]))
+        if pan_seg is not None:
+            pan_seg = torch.as_tensor(pan_seg.astype(np.int64), device=dev)
         ai = AugInput(image=image, pan_seg=pan_seg)
         if self.is_train:
             for aug in self.augmentations:
@@ -76,20 +87,16 @@ class COCOPanopticDatasetMapper:
         gt_labels = torch.zeros((T,), dtype=torch.long, device=dev)
         gt_masks = torch.zeros((T, S_h, S_w), dtype=torch.bool, device=dev)
         gt_valid = torch.zeros((T,), dtype=torch.bool, device=dev)
-        if pan_seg is not None and "segments_info" in record:
-            i = 0
-            for seg in record["segments_info"]:
-                if seg.get("iscrowd", 0):
-                    continue
-                mask = pan_seg == seg["id"]
-                if not bool(mask.any()):
-                    continue
-                if i >= T:
-                    break
-                gt_labels[i] = seg["category_id"]
-                gt_masks[i] = mask
-                gt_valid[i] = True
-                i += 1
+        segments = [s for s in record.get("segments_info", ()) if not s.get("iscrowd", 0)]
+        if pan_seg is not None and segments:
+            ids = torch.tensor([s["id"] for s in segments], device=dev)
+            masks = pan_seg == ids[:, None, None]
+            # the segments the crop kept, in one reduction and one read
+            kept = [i for i, p in enumerate(masks.flatten(1).any(1).tolist()) if p][:T]
+            n = len(kept)
+            gt_labels[:n] = torch.tensor([segments[i]["category_id"] for i in kept], device=dev)
+            gt_masks[:n] = masks[kept]
+            gt_valid[:n] = True
         out.update(gt_labels=gt_labels, gt_masks=gt_masks, gt_valid=gt_valid)
 
         if self.with_captions:

@@ -1,5 +1,5 @@
 """Data loaders (counterpart of ``odise_tpu/data/loader.py`` for one
-process): an infinite seeded shuffle of in-memory records, mapped and
+process): an infinite seeded shuffle of records, mapped and
 collated into batches, with the JAX loader's sampler and augmentation
 seeds, so that both packages see the same images with the same flips,
 scales and crops; and a sequential test pass.

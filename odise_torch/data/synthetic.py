@@ -5,16 +5,22 @@ the image, class 0 "cat" (thing) is a red rectangle and class 1 "dog"
 (thing) a blue disk drawn on top. ``_draw_sample`` is the JAX package's,
 unchanged, so one seed gives the same pixels in both packages.
 
-The JAX package writes each sample to PNG files; the port keeps them in
-memory, as arrays under ``image``, ``pan_seg`` and ``sem_seg`` (the record
-keys the eval loop reads), so it needs no image codec.
+``make_shapes_records`` keeps the samples in memory, as arrays under
+``image``, ``pan_seg`` and ``sem_seg`` (the record keys the eval loop
+reads); ``write_shapes_dataset`` writes the same samples to PNG files, as
+the JAX package's ``make_shapes_records(out_dir, ...)`` does, and returns
+records that name them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from .image_io import write_png
+from .transforms import id2rgb
 
 SYNTH_LABELS: Tuple[Tuple[str, ...], ...] = (("cat",), ("dog",), ("grass",))
 SYNTH_THING = (True, True, False)
@@ -103,4 +109,26 @@ def make_shapes_records(n: int, *, size: int = 64, seed: int = 0,
                 "a photo of a " + " and a ".join(things) + " on grass"]
             record["words"] = present
         records.append(record)
+    return records
+
+
+def write_shapes_dataset(out_dir: str, n: int, *, size: int = 64, seed: int = 0,
+                         prefix: str = "synth", with_captions: bool = False,
+                         vary: bool = False) -> List[Dict]:
+    """``make_shapes_records``' samples written to ``out_dir`` as the JAX
+    package writes them (``{prefix}{i}.png`` RGB, ``{prefix}{i}_pan.png``
+    panoptic RGB, ``{prefix}{i}_sem.png`` gray class ids); returns records
+    with ``file_name``, ``pan_seg_file_name`` and ``sem_seg_file_name`` in
+    place of the arrays."""
+    os.makedirs(out_dir, exist_ok=True)
+    records = make_shapes_records(n, size=size, seed=seed, with_captions=with_captions,
+                                  vary=vary)
+    for i, rec in enumerate(records):
+        paths = {key: os.path.join(out_dir, f"{prefix}{i}{suffix}.png")
+                 for key, suffix in (("file_name", ""), ("pan_seg_file_name", "_pan"),
+                                     ("sem_seg_file_name", "_sem"))}
+        write_png(paths["file_name"], rec.pop("image"))
+        write_png(paths["pan_seg_file_name"], id2rgb(rec.pop("pan_seg")))
+        write_png(paths["sem_seg_file_name"], rec.pop("sem_seg"))
+        rec.update(paths)
     return records

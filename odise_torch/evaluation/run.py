@@ -11,23 +11,31 @@ than every grid, too many gt segments or instances) and every image without
 resizes the result to the original size. Host-path images are counted in
 ``host_fallback_images`` and logged.
 
-Records are dicts with ``image`` [H, W, 3] uint8 and optionally
-``sem_seg`` [H, W] int, ``pan_seg`` [H, W] segment ids and
-``segments_info`` (``make_shapes_records`` makes such records); instance gt
-comes from the thing segments of the panoptic gt.
+Records hold ``image`` [H, W, 3] uint8 and optionally ``sem_seg`` [H, W]
+int, ``pan_seg`` [H, W] segment ids and ``segments_info``
+(``make_shapes_records`` makes such records), or name their files instead
+(``file_name``, ``sem_seg_file_name``, ``pan_seg_file_name``), as the
+registered datasets do; a label file that is absent leaves its task without
+ground truth for the image, as in ``tools/train_net.py``. Instance gt comes
+from a record's COCO ``annotations``, else from ``inst_gt_index`` (the
+task's instances json by image id), else from the thing segments of the
+panoptic gt.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..data.coco_mask import annotations_to_masks
+from ..data.image_io import read_image, read_label, read_rgb_png
 from ..data.transforms import (AugInput, ResizeShortestEdge, resize_bilinear,
-                               resize_nearest)
+                               resize_nearest, rgb2id)
 from ..models.inference import (instance_inference, panoptic_inference,
                                 semantic_inference)
 from .buckets import compute_eval_buckets, pick_bucket
@@ -44,10 +52,16 @@ IGNORE_LABEL = 255  # the semantic gt's "no label", as in COCO and ADE20K
 
 def prep_record(rec: dict, resize: ResizeShortestEdge, buckets, thing_mask: np.ndarray,
                 semantic_on: bool = True, panoptic_on: bool = True,
-                instance_on: bool = True) -> dict:
+                instance_on: bool = True, device=None,
+                inst_gt_index: Optional[Dict[int, List[dict]]] = None) -> dict:
     """Resize and pad the image into its bucket; gather the gt of the tasks
-    that are on at the original resolution."""
-    img = np.asarray(rec["image"])
+    that are on at the original resolution. An image file is decoded on
+    ``device`` (default CUDA; a JPEG by nvJPEG there) and prepared on the
+    host."""
+    if "image" in rec:
+        img = np.asarray(rec["image"])
+    else:
+        img = read_image(rec["file_name"], device).cpu().numpy()
     oh, ow = img.shape[:2]
     image = resize(AugInput(image=torch.from_numpy(img))).image
     h, w = image.shape[:2]
@@ -56,18 +70,36 @@ def prep_record(rec: dict, resize: ResizeShortestEdge, buckets, thing_mask: np.n
     padded = torch.zeros((1, bh, bw, 3), dtype=torch.float32)
     padded[0, :h, :w] = image.float() / 255.0
 
-    sem_gt = np.asarray(rec["sem_seg"]) if semantic_on and "sem_seg" in rec else None
+    sem_gt = None
+    if semantic_on and "sem_seg" in rec:
+        sem_gt = np.asarray(rec["sem_seg"])
+    elif semantic_on and os.path.isfile(rec.get("sem_seg_file_name", "")):
+        sem_gt = read_label(rec["sem_seg_file_name"])
     gt_ids = gt_segments = None
-    if (panoptic_on or instance_on) and "segments_info" in rec and "pan_seg" in rec:
-        gt_ids = np.asarray(rec["pan_seg"], np.uint32)
-        gt_segments = [dict(s) for s in rec["segments_info"]]
+    if (panoptic_on or instance_on) and "segments_info" in rec:
+        if "pan_seg" in rec:
+            gt_ids = np.asarray(rec["pan_seg"], np.uint32)
+        elif os.path.isfile(rec.get("pan_seg_file_name", "")):
+            gt_ids = rgb2id(read_rgb_png(rec["pan_seg_file_name"]))
+        if gt_ids is not None:
+            gt_segments = [dict(s) for s in rec["segments_info"]]
     inst_gt_masks = inst_gt_classes = inst_gt_crowd = None
-    if instance_on and gt_ids is not None:
-        things = [s for s in gt_segments if thing_mask[s["category_id"]]]
-        inst_gt_masks = (np.stack([gt_ids == s["id"] for s in things]) if things
-                         else np.zeros((0, oh, ow), bool))
-        inst_gt_classes = np.asarray([s["category_id"] for s in things], np.int64)
-        inst_gt_crowd = np.asarray([bool(s.get("iscrowd", 0)) for s in things], bool)
+    if instance_on:
+        anns = rec.get("annotations")
+        if anns is None and inst_gt_index is not None and "image_id" in rec:
+            # an image the index does not name has no instances: its
+            # detections still count as false positives
+            anns = inst_gt_index.get(int(rec["image_id"]), [])
+        if anns is not None:
+            inst_gt_masks = annotations_to_masks(anns, oh, ow)
+            inst_gt_classes = np.asarray([a["category_id"] for a in anns], np.int64)
+            inst_gt_crowd = np.asarray([bool(a.get("iscrowd", 0)) for a in anns], bool)
+        elif gt_ids is not None:
+            things = [s for s in gt_segments if thing_mask[s["category_id"]]]
+            inst_gt_masks = (np.stack([gt_ids == s["id"] for s in things]) if things
+                             else np.zeros((0, oh, ow), bool))
+            inst_gt_classes = np.asarray([s["category_id"] for s in things], np.int64)
+            inst_gt_crowd = np.asarray([bool(s.get("iscrowd", 0)) for s in things], bool)
     return dict(padded=padded, h=h, w=w, oh=oh, ow=ow, sem_gt=sem_gt,
                 gt_ids=gt_ids, gt_segments=gt_segments,
                 inst_gt_masks=inst_gt_masks, inst_gt_classes=inst_gt_classes,
@@ -81,14 +113,19 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
                         max_size: int = 2560, semantic_on: bool = True,
                         panoptic_on: bool = True, instance_on: bool = True,
                         ignore_label: int = IGNORE_LABEL,
+                        inst_gt_index: Optional[Dict[int, List[dict]]] = None,
                         task: str = "main") -> Dict[str, float]:
     """Evaluate ``infer`` (images [1, H, W, 3] -> (mask_cls, mask_pred), with
     the fusion settings on ``infer.model``) over ``records`` against a
     vocabulary of ``labels`` with a [K] bool ``thing_mask``. Returns the
     semantic (mIoU, ...), panoptic (PQ, ...) and instance (AP, ...) metrics
     of the tasks that are on, with ``images``, ``s_per_img`` and, with
-    ``device_stats``, ``host_fallback_images``; logs them under ``task``."""
+    ``device_stats``, ``host_fallback_images``; logs them under ``task``.
+    ``inst_gt_index`` (image id -> COCO annotations) is the instance gt of
+    records without ``annotations``. Image files are decoded on
+    ``infer.device``."""
     model = infer.model
+    device = getattr(infer, "device", None)
     obj_thr = float(model.object_mask_threshold)
     ovl_thr = float(model.overlap_threshold)
     topk = int(model.test_topk_per_image)
@@ -113,7 +150,7 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
     n = n_fallback = 0
     for rec in records:
         p = prep_record(rec, resize, buckets, thing_np, semantic_on, panoptic_on,
-                        instance_on)
+                        instance_on, device, inst_gt_index)
         mask_cls, mask_pred = infer(p["padded"])
         mask_cls, mask_pred = mask_cls[0], mask_pred[0]
         h, w, oh, ow = p["h"], p["w"], p["oh"], p["ow"]

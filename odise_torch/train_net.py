@@ -27,6 +27,7 @@ import torch
 from .config import (apply_overrides, auto_scale_workers, instantiate, instantiate_odise,
                      load_config, resolve)
 from .data.catalog import DatasetCatalog, MetadataCatalog
+from .data.datasets.register_coco import load_instance_gt_index
 from .engine.checkpoint import BestCheckpointer, Checkpointer
 from .engine.defaults import default_setup
 from .engine.hooks import EvalHook, PeriodicCheckpointer, PeriodicWriter
@@ -109,11 +110,10 @@ def build_vocab_and_thing_mask(model, wrapper_cfg, train_labels):
 def do_test(cfg, model, max_images: int = -1, final_iter: bool = True) -> Dict[str, dict]:
     """Open-vocabulary evaluation of the main task and the extra tasks
     (those marked ``final_iter_only`` only when ``final_iter``). An extra
-    task whose dataset is not registered is skipped with a warning, as in
-    ``tools/train_net.py``; an unregistered main dataset raises ``KeyError``.
-    Records without an ``image`` array raise ``NotImplementedError``: the
-    port decodes no image files yet, and a run must not go on without its
-    evaluation."""
+    task is skipped with a warning, as in ``tools/train_net.py``, where its
+    dataset is not registered or fails to load, has no records, or its first
+    record's image file is absent. The main task in that state raises: a run
+    does not go on without its evaluation."""
     tasks = {"main": cfg.dataloader.wrapper}
     for name, t in cfg.get("extra_task", {}).items():
         if t.get("final_iter_only") and not final_iter:
@@ -122,27 +122,39 @@ def do_test(cfg, model, max_images: int = -1, final_iter: bool = True) -> Dict[s
     eval_short = cfg.dataloader.get("eval_short_side", 1024)
     eval_max = cfg.dataloader.get("eval_max_size", 2560)
 
-    # every task's records first, so that a task that cannot be evaluated
-    # fails the call before any evaluation runs
+    # every task's records first, so that a main task that cannot be
+    # evaluated fails the call before any evaluation runs
     runs = []
     for task_name, wrapper in tasks.items():
         wrapper_cfg = instantiate(wrapper)
         dataset_name = wrapper_cfg["dataset_name"]
-        if task_name != "main" and dataset_name not in DatasetCatalog:
-            logger.warning("Skipping task %s: dataset '%s' is not registered",
-                           task_name, dataset_name)
+        try:
+            records = DatasetCatalog.get(dataset_name)
+            if not records:
+                raise ValueError(f"dataset '{dataset_name}' has no records")
+            first = records[0]
+            if "image" not in first and not os.path.isfile(first.get("file_name", "")):
+                raise FileNotFoundError(f"dataset '{dataset_name}': its first image "
+                                        f"{first.get('file_name')!r} is not there")
+        except Exception as err:  # a task's data that cannot be read
+            if task_name == "main":
+                raise
+            logger.warning("Skipping task %s: %s", task_name, err)
             continue
-        records = DatasetCatalog.get(dataset_name)
-        if records and "image" not in records[0]:
-            raise NotImplementedError(
-                f"task {task_name}: the records of '{dataset_name}' carry no 'image' "
-                "array, and the port decodes no image files yet")
         if max_images > 0:
             records = records[:max_images]
         runs.append((task_name, wrapper_cfg, dataset_name, records))
 
     results = {}
     for task_name, wrapper_cfg, dataset_name, records in runs:
+        meta = MetadataCatalog.get(dataset_name)
+        instance_on = wrapper_cfg.get("instance_on", True)
+        inst_json, thing_ids = meta.get("json_file"), meta.get("thing_dataset_id_to_contiguous_id")
+        # the instances json is the instance gt where the dataset has one;
+        # its ids map into the task's contiguous classes
+        inst_gt_index = (load_instance_gt_index(inst_json, thing_ids)
+                         if instance_on and inst_json and thing_ids
+                         and os.path.isfile(inst_json) else None)
         vocab = build_vocab_and_thing_mask(model, wrapper_cfg, model.train_labels)
         r = evaluate_open_vocab(
             OpenPanopticInference(model, vocab), records, labels=vocab.labels,
@@ -151,9 +163,8 @@ def do_test(cfg, model, max_images: int = -1, final_iter: bool = True) -> Dict[s
             short_side=eval_short, max_size=eval_max,
             semantic_on=wrapper_cfg.get("semantic_on", True),
             panoptic_on=wrapper_cfg.get("panoptic_on", True),
-            instance_on=wrapper_cfg.get("instance_on", True),
-            ignore_label=int(MetadataCatalog.get(dataset_name).get("ignore_label", 255)),
-            task=task_name)
+            instance_on=instance_on, ignore_label=int(meta.get("ignore_label", 255)),
+            inst_gt_index=inst_gt_index, task=task_name)
         results[task_name] = r
         logger.info("Task %s: %s", task_name,
                     {k: round(float(v), 2) for k, v in r.items() if isinstance(v, float)})

@@ -1,6 +1,6 @@
 """The deformable-attention CUDA kernels (forward and backward) against
-their plain PyTorch versions, and the evaluation statistics on the card
-against the same on the CPU.
+their plain PyTorch versions, the evaluation statistics on the card
+against the same on the CPU, and nvJPEG's decodes against PIL's.
 Imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -556,3 +556,50 @@ def test_full_parity_with_jax_through_the_converters(cuda):
     missed = {k: v for k, v in errors.items() if not v[0] <= v[2]}
     assert not missed, missed
     assert agreement >= 0.99
+
+
+JPEG_CASES = ["baseline_420_641x479", "baseline_444", "grayscale", "progressive",
+              "demo/ade", "demo/coco", "demo/ego4d"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", JPEG_CASES)
+def test_nvjpeg_matches_pil(cuda, case):
+    """nvJPEG's decode of each JPEG fixture and demo image against PIL's
+    stored decode (``tests/data/torch_jpeg_reference.npz``): the shape
+    exactly; PSNR and mean absolute error within ``PSNR_MIN_DB`` and
+    ``MEAN_ABS_MAX`` (nvJPEG's IDCT and chroma upsampling are not
+    libjpeg-turbo's). Prints the gap per channel."""
+    from odise_torch.data.image_io import decode_jpeg_cuda
+
+    from .torch_jpeg_fixtures import MEAN_ABS_MAX, PSNR_MIN_DB, jpeg_gap, load
+
+    data, want = load()[0][case]
+    before = decode_jpeg_cuda.decodes
+    got = decode_jpeg_cuda(data, "cuda")
+    torch.cuda.synchronize()
+    assert decode_jpeg_cuda.decodes == before + 1
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    gap = jpeg_gap(got.cpu().numpy(), want)
+    print(f"nvJPEG vs PIL {case}: {gap}")
+    assert gap["psnr_db"] >= PSNR_MIN_DB and gap["mean_abs"] <= MEAN_ABS_MAX, (case, gap)
+
+
+@pytest.mark.cuda
+def test_read_image_dispatches_on_the_signature(cuda, tmp_path):
+    """On the card a JPEG goes to nvJPEG whatever its name, and a PNG is
+    decoded on the host and moved to the card, equal to the CPU's read."""
+    from odise_torch.data.image_io import decode_jpeg_cuda, read_image, write_png
+
+    from .torch_jpeg_fixtures import load
+
+    data, want = load()[0]["baseline_444"]
+    (tmp_path / "a.png").write_bytes(data)
+    write_png(tmp_path / "b.jpg", want)
+    before = decode_jpeg_cuda.decodes
+    jpeg = read_image(tmp_path / "a.png", "cuda")
+    assert decode_jpeg_cuda.decodes == before + 1
+    assert torch.equal(jpeg, decode_jpeg_cuda(data, "cuda"))
+    png = read_image(tmp_path / "b.jpg", "cuda")
+    assert png.device.type == "cuda" and decode_jpeg_cuda.decodes == before + 2
+    assert np.array_equal(png.cpu().numpy(), want)

@@ -212,7 +212,9 @@ def test_port_imports_no_jax():
     one in-memory synthetic record, build TINY CaptionODISE, take one TINY
     CategoryODISE train step (mapper, loader, partition, optimizer,
     Trainer), load every file of the port's config tree and run the train
-    and eval CLI for one step. chip_smoke.py must not import them either."""
+    and eval CLI for one step; register a dataset of PNG files, map one
+    record and evaluate one image from its files; and a JPEG read on the
+    CPU fails naming PIL. chip_smoke.py must not import them either."""
     script = textwrap.dedent("""
         import sys
         for name in ("jax", "jaxlib", "flax", "optax", "odise_tpu", "PIL", "cv2"):
@@ -269,6 +271,27 @@ def test_port_imports_no_jax():
                                   "--output", out, "--max-eval-images", "1", "train.device=cpu",
                                   "train.max_iter=1", "train.eval_period=1"])
         assert run.history[0]["grad_norm"] > 0 and run.eval_results["main"]["images"] == 1
+        from odise_torch.data.catalog import DatasetCatalog, MetadataCatalog
+        from odise_torch.data.image_io import read_image
+        from odise_torch.data.synthetic import synth_categories, write_shapes_dataset
+        with tempfile.TemporaryDirectory() as d:
+            files = write_shapes_dataset(d, 1, size=48)
+            DatasetCatalog.register("_png_files", lambda: files)
+            MetadataCatalog.get("_png_files").set(ignore_label=255,
+                                                  categories=synth_categories())
+            rec = DatasetCatalog.get("_png_files")[0]
+            assert "image" not in rec and mapper(rec)["gt_valid"].any()
+            r = evaluate_open_vocab(infer, DatasetCatalog.get("_png_files"), labels=SYNTH_LABELS,
+                                    thing_mask=SYNTH_THING, short_side=64, max_size=160)
+            assert r["images"] == 1 and r["host_fallback_images"] == 0
+            jpeg = d + "/a.jpg"
+            with open(jpeg, "wb") as f:
+                f.write(bytes([0xFF, 0xD8, 0xFF, 0xE0]) + bytes(16))
+            try:
+                read_image(jpeg, "cpu")
+                raise AssertionError("a JPEG was decoded on the CPU without PIL")
+            except ImportError as err:
+                assert "PIL" in str(err), err
         assert not any(k.split(".")[0] in ("jax", "flax", "odise_tpu", "PIL", "cv2")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")

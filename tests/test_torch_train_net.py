@@ -83,7 +83,8 @@ def port_log(caplog):
 
 def test_do_test_skips_unregistered_tasks(port_log):
     """The shipped extra tasks instantiate their vocabularies (every label
-    file is there) and are skipped by name, their datasets not registered."""
+    file is there) and are skipped by name with a warning: their datasets
+    are registered, but their files are not under the dataset root."""
     from odise_torch.config import get_config, resolve
 
     cfg = get_config("Panoptic/odise_label_tiny_synth.py")
@@ -104,10 +105,12 @@ def test_do_test_skips_unregistered_tasks(port_log):
 
 @pytest.mark.parametrize("case", ["main_unregistered", "main_without_images",
                                   "extra_without_images"])
-def test_do_test_refuses_what_it_cannot_evaluate(case):
-    """An unregistered main dataset, and any registered one whose records
-    carry no image array (the port decodes no files), fail the evaluation
-    before it starts: a run does not go on unevaluated."""
+def test_do_test_refuses_what_it_cannot_evaluate(case, port_log):
+    """An unregistered main dataset, and a main dataset whose first record
+    names an image file that is not there, fail the evaluation before it
+    starts: a run does not go on unevaluated. An extra task in that state is
+    skipped with a warning and the main task is evaluated, as in
+    ``tools/train_net.py``."""
     from odise_torch.config import get_config, resolve
     from odise_torch.data.catalog import DatasetCatalog
 
@@ -116,12 +119,19 @@ def test_do_test_refuses_what_it_cannot_evaluate(case):
     cfg = get_config("Panoptic/odise_label_tiny_synth.py")
     task = cfg.dataloader.wrapper if case.startswith("main") else dict(cfg.dataloader.wrapper)
     task["dataset_name"] = "_unregistered" if case == "main_unregistered" else "_no_images"
-    if case == "extra_without_images":
-        cfg.extra_task = {"eval_files": {"task": {"wrapper": task}}}
-    want = KeyError if case == "main_unregistered" else NotImplementedError
     try:
-        with pytest.raises(want):
-            train_net.do_test(resolve(cfg), model=None)
+        if case == "extra_without_images":
+            cfg.extra_task = {"eval_files": {"task": {"wrapper": task}}}
+            cfg.train.device = "cpu"
+            cfg = resolve(cfg)
+            with port_log.at_level(logging.WARNING, logger="odise_torch"):
+                results = train_net.do_test(cfg, train_net.build_model(cfg), max_images=1)
+            assert list(results) == ["main"] and results["main"]["images"] == 1
+            assert "Skipping task eval_files" in port_log.text and "0.jpg" in port_log.text
+        else:
+            want = KeyError if case == "main_unregistered" else FileNotFoundError
+            with pytest.raises(want):
+                train_net.do_test(resolve(cfg), model=None)
     finally:
         DatasetCatalog.remove("_no_images")
 
