@@ -123,6 +123,25 @@ Phases, each fatal on failure:
      files are absent); then the same val records, read by ``image_io`` and
      held in memory, evaluated here by ``model_final``: every metric equal
      to the file-backed eval; a main task with absent files raises.
+ 13. two ranks (``parallel_phase``; NCCL refuses two ranks on one card, so
+     the two ranks share it over gloo, and NCCL runs at world size 1): (a)
+     the collectives the port uses (all-reduce, the train step's mean
+     all-reduce, the grounding loss's gather forward and backward and
+     without gradients, ``all_gather_object``) on a one-rank NCCL group
+     and on two gloo ranks, against the host's values, and what NCCL
+     reports for two ranks on one card; (b) one FULL float32 step of phase
+     8's recipe in one process at batch 2 and on two ranks of one image
+     each (the one process's assignment of queries to targets and its
+     importance-sampled points, which the pattern weights leave to float32
+     noise; the ranks' own differences counted, and a one-process batch-1
+     step's on each image beside them): each rank's uniform draws bitwise
+     its rows of the one process's, the ranks' mean metrics within 1e-4,
+     their gradients within 1e-3 of the one process's, both ranks bitwise
+     equal, for CategoryODISE and CaptionODISE ("diff"); (c) ``train_net`` through
+     ``launch`` on two ranks: the shipped COCO recipe on phase 12's files,
+     3 steps at a total batch of 4, the final eval shared 2 + 1 over 3
+     images, the ranks' parameters bitwise equal, only rank 0 writing,
+     the merged metrics equal to a one-process ``--eval-only``.
 Phase 1 also builds the backward kernel and prints its launch plan, shared
 memory and resident warps; phase 2 also holds it against the plain backward
 run in float64, at the main path's levels on random, out-of-range,
@@ -1008,15 +1027,15 @@ class TimedStep:
         return metrics
 
 
-def build_for_training(build, labels=None):
-    """A FULL model for training on the card: bf16 compute, no CLIP head,
-    slide training over serial checkpointed crops; the towers frozen, then
-    the pattern weights."""
+def build_for_training(build, labels=None, dtype=torch.bfloat16):
+    """A FULL model for training on the card: ``dtype`` compute, no CLIP
+    head, slide training over serial checkpointed crops; the towers frozen,
+    then the pattern weights."""
     from odise_torch.engine import partition_params
 
     kw = {} if labels is None else dict(train_labels=labels)
     model = build("full", with_clip_head=False, use_checkpoint=True, slide_training=True,
-                  slide_serial=True, device="cuda", dtype=torch.bfloat16, **kw)
+                  slide_serial=True, device="cuda", dtype=dtype, **kw)
     trainable, frozen = partition_params(model)
     pattern_fill_(model)
     return model, trainable, frozen
@@ -2137,6 +2156,614 @@ def dataset_phase():
                 s_per_img=main["s_per_img"])
 
 
+# phase 13: two ranks share the one card over gloo (NCCL refuses two ranks
+# on one card); NCCL runs at world size 1
+PARALLEL_WORLD = 2
+PARALLEL_STEP_SEEDS = {"category": 0, "caption": 1}  # phase 8's loader and generator seeds
+# the CLI's run: the shipped COCO recipe on phase 12's files, 3 steps at a
+# total batch of 4 after auto_scale_workers(cfg, 2), the final eval on 3 images
+PARALLEL_CLI_STEPS = 3
+# one FULL step in float32, compared with its one-process run: metrics
+# (the ranks' mean) 1e-4 relative; gradients within 1e-3 of each tensor's
+# largest entry, or 1e-6 of the largest over all of them (a gradient that
+# vanishes in exact arithmetic, a bias before a normalisation, is float32
+# noise on both sides)
+PARALLEL_METRIC_RTOL, PARALLEL_GRAD_REL, PARALLEL_GRAD_FLOOR = 1e-4, 1e-3, 1e-6
+
+
+def _rank_tf32_off():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _digest(tensors):
+    """sha256 of the tensors' bytes in name order: equal digests are
+    bitwise equal tensors."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        h.update(name.encode())
+        h.update(tensors[name].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class TimedAllReduce:
+    """Inside ``with``, each call of the train step's all-reduce is timed
+    from the host with a synchronize on either side, into ``ms``."""
+
+    def __enter__(self):
+        from odise_torch.engine import train_loop
+
+        self.ms, self.plain = [], train_loop.all_reduce_mean_
+
+        def timed(tensors):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.plain(tensors)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        train_loop.all_reduce_mean_ = timed
+        return self
+
+    def __exit__(self, *exc):
+        from odise_torch.engine import train_loop
+
+        train_loop.all_reduce_mean_ = self.plain
+
+
+def collective_checks(device=None):
+    """On this rank of a process group on the card: the collectives the
+    port uses against values computed on the host. An all-reduce (sum) of
+    4,096 floats; the train step's mean all-reduce of two tensors through
+    one flat buffer; the grounding loss's gather along dim 0, forward and
+    backward (each rank's rows get the sum over the ranks of their
+    gradients), and without gradients; ``all_gather_object`` (which
+    ``gather_pickled`` runs). Returns each one's largest absolute error
+    (all must be 0: these sums are exact in float32) and the all-reduce's
+    ms for 28,591,297 floats, the trainable gradients' size."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from odise_torch.parallel import multihost as mh
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+
+    def rows(r):
+        return torch.from_numpy(np.random.RandomState(100 + r).randn(3, 5).astype(np.float32))
+
+    def coef(r):
+        return torch.from_numpy(np.random.RandomState(200 + r).randn(3 * world, 5)
+                                .astype(np.float32))
+
+    err = {}
+    t = torch.arange(4096, dtype=torch.float32, device=dev) * (rank + 1)
+    dist.all_reduce(t)
+    err["all_reduce"] = float((t.cpu() - torch.arange(4096.0) * sum(range(1, world + 1)))
+                              .abs().max())
+    pair = [torch.full((7,), float(rank), device=dev), torch.full((2, 3), 2.0 * rank, device=dev)]
+    if world > 1:
+        mh.all_reduce_mean_(pair)
+    else:  # the helper is the local path at world size 1: reduce directly
+        dist.all_reduce(pair[0])
+        dist.all_reduce(pair[1])
+    mean = sum(range(world)) / world
+    err["all_reduce_mean"] = max(float((pair[0].cpu() - mean).abs().max()),
+                                 float((pair[1].cpu() - 2 * mean).abs().max()))
+    x = rows(rank).to(dev).requires_grad_()
+    gathered = mh._GatherRows.apply(x)
+    err["gather"] = float((gathered.detach().cpu() - torch.cat([rows(r) for r in range(world)]))
+                          .abs().max())
+    (gathered * coef(rank).to(dev)).sum().backward()
+    want = sum(coef(r) for r in range(world))[rank * 3:(rank + 1) * 3]
+    err["gather_backward"] = float((x.grad.cpu() - want).abs().max())
+    plain = mh._gather(x.detach()) if world == 1 else mh.all_gather_rows(x, False)
+    err["gather_no_grad"] = float((plain.cpu() - torch.cat([rows(r) for r in range(world)]))
+                                  .abs().max()) + float(plain.requires_grad)
+    objs = [None] * world
+    dist.all_gather_object(objs, {"rank": rank, "values": list(range(rank + 3))})
+    if world > 1 and mh.gather_pickled({"rank": rank}) != [{"rank": r} for r in range(world)]:
+        err["gather_pickled"] = 1.0
+    err["all_gather_object"] = float(objs != [{"rank": r, "values": list(range(r + 3))}
+                                              for r in range(world)])
+    buf = torch.ones(28_591_297, device=dev)
+    dist.all_reduce(buf)
+    buf.sum().item()  # waits for the reduction
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dist.all_reduce(buf)
+    buf.sum().item()
+    return {"errors": err, "all_reduce_28m_ms": (time.perf_counter() - t0) / 3 * 1e3,
+            "backend": dist.get_backend(), "world": world, "device": str(dev)}
+
+
+def _collectives_rank(out_dir, device=None):
+    import os
+
+    with open(os.path.join(out_dir, f"collectives{torch.distributed.get_rank()}.json"),
+              "w") as f:
+        json.dump(collective_checks(device), f)
+
+
+def _nccl_shared_card_rank(rank, url, out_dir):
+    """Two NCCL ranks on card 0, as ``launch`` refuses to start them: what
+    NCCL says."""
+    import os
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=url, world_size=2, rank=rank)
+        t = torch.ones(1, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        msg = f"ran, all_reduce gave {t.item()}"
+    except Exception as err:  # what NCCL reports is the finding
+        msg = f"{type(err).__name__}: {err}"
+    with open(os.path.join(out_dir, f"nccl{rank}.txt"), "w") as f:
+        f.write(msg)
+    os._exit(0)  # a failed NCCL communicator may not tear down
+
+
+def nccl_shared_card_probe(out_dir, timeout_s=90):
+    """Start two NCCL ranks on card 0 and return what each reported (or
+    that it did not report within ``timeout_s``); stops both."""
+    import os
+
+    ctx = torch.multiprocessing.start_processes(
+        _nccl_shared_card_rank, nprocs=2, args=(f"file://{out_dir}/nccl_rendezvous", out_dir),
+        join=False, start_method="spawn")
+    deadline = time.perf_counter() + timeout_s
+    exit_note = ""
+    try:
+        while not ctx.join(timeout=1) and time.perf_counter() < deadline:
+            pass
+    except torch.multiprocessing.ProcessExitedException as err:  # NCCL may abort a rank
+        exit_note = f" ({err})"
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    out = []
+    for r in range(2):
+        path = os.path.join(out_dir, f"nccl{r}.txt")
+        out.append(open(path).read() if os.path.exists(path)
+                   else f"no report within {timeout_s} s{exit_note}")
+    return out
+
+
+def full_step(kind, rows, reference=None):
+    """One step of phase 8's recipe in float32 (TF32 off) on rows ``rows``
+    of phase 8's first batch (its loader and generator seeds): FULL
+    CategoryODISE or CaptionODISE (grounding over the ranks, "diff")
+    without the CLIP head, pattern weights. In a process group every rank
+    draws the batch of 2's points and keeps its own. Returns the metrics,
+    the step's ms, the kernels' launches, peak memory, the all-reduce's ms
+    and digests of the gradients and updated parameters; without
+    ``reference`` the gradients themselves, digests of the criterion's
+    uniform draws (``matcher.draw_rows``' results, image by image) and its
+    two choices, the matcher's assignment and the importance-sampled points.
+
+    ``reference`` (the file those went to in the one-process run at batch
+    2) gives the draws and choices for this step's rows. Without a process
+    group (one process at batch 1) the step draws the batch of 2's draws
+    from its generator and keeps its rows, as a rank does. Either way the
+    draws are held bitwise to the one process's (the generator is
+    deterministic, so any difference is a slicing or generator fault); in a
+    group each gradient's error against the one process's is returned. The
+    step then takes the one process's choices:
+    the pattern weights' queries and pixels differ little, so that float32
+    noise (a batch of 1 runs other cuDNN and GEMM tilings than a batch of
+    2) decides between assignments within the auction's increment of each
+    other and between points of near-equal uncertainty. How many (layer,
+    valid target) pairs the step's own choices differ in is returned
+    beside a digest of those choices: a rank's and a one-process batch-1
+    step's on the same image tell the batch's share from the ranks'."""
+    from odise_torch.engine import (make_caption_train_step, make_category_train_step,
+                                    make_optimizer)
+    from odise_torch.losses import CriterionConfig, matcher
+    from odise_torch.model_zoo.factory import build_caption_odise, build_category_odise
+    from odise_torch.models.clip.tokenizer import tokenize
+
+    _rank_tf32_off()
+    caption = kind == "caption"
+    seed = PARALLEL_STEP_SEEDS[kind]
+    labels = None if caption else vocabulary(80, 53, "category")[0]
+    model, trainable, _ = build_for_training(
+        build_caption_odise if caption else build_category_odise, labels, torch.float32)
+    batch = {k: v[rows] for k, v in next(train_loader(640, caption, seed)).items()}
+    opt = make_optimizer(trainable, lr=1e-4, weight_decay=0.05)
+    if caption:
+        step = make_caption_train_step(model, opt, CriterionConfig(num_classes=1),
+                                       grad_clip=0.01)
+    else:
+        with torch.no_grad():
+            text = model.encode_vocab(torch.from_numpy(
+                tokenize([l[0] for l in labels])).long().cuda())
+        step = make_category_train_step(model, opt, CriterionConfig(num_classes=len(labels)),
+                                        text, labels, grad_clip=0.01)
+    # the criterion's two choices: the assignment of queries to targets and
+    # the importance-sampled points; the one process's, for this step's rows
+    want = None if reference is None else torch.load(reference, weights_only=True)
+    distributed = torch.distributed.is_initialized()
+    crit = importlib.import_module("odise_torch.losses.set_criterion")
+    plain_assign = matcher.assign_from_cost
+    plain_points = crit.get_uncertain_point_coords_with_randomness
+    plain_draw = matcher.draw_rows
+    chosen = {"matched": [], "points": []}
+    own = {"matched": [], "points": []}
+    differ = {"matched": 0, "points": 0}
+    drawn, draws_unequal = [], []  # each draw's digest for each image's rows
+    valid = batch["gt_valid"].bool()
+    T = valid.shape[1]
+
+    def draw(generator, shape, device, kind, layer):
+        n = shape[0] // len(rows)  # a draw's rows for one image
+        if want is None or distributed:
+            got = plain_draw(generator, shape, device, kind, layer)
+        else:  # one process at batch 1: the batch of 2's draw, its rows
+            both = matcher.draw_uniform(generator, (PARALLEL_WORLD * n,) + tuple(shape[1:]),
+                                        device, kind, layer)
+            got = torch.cat([both[r * n:(r + 1) * n] for r in rows])
+        k = len(drawn)
+        drawn.append([_digest({"rows": got[i * n:(i + 1) * n]}) for i in range(len(rows))])
+        if want is not None and (k >= len(want["draws"])
+                                 or drawn[k] != [want["draws"][k][r] for r in rows]):
+            draws_unequal.append(f"draw {k} ({kind}, {layer}) {tuple(got.shape)}")
+        return got
+
+    def one_process_rows(got, key):
+        own[key].append(got)
+        if want is None:
+            chosen[key].append(got)
+            return got
+        one = want[key][len(chosen[key])].to(got.device) if key == "points" else \
+            want[key].to(got.device)
+        if key == "matched":  # [layers * 2, T], layer by layer
+            take = torch.cat([one[i * 2:(i + 1) * 2][rows] for i in range(one.shape[0] // 2)])
+            differ[key] += int(((take != got) & valid.repeat(one.shape[0] // 2, 1)).sum())
+        else:  # [2 * T, points, 2], image by image
+            take = torch.cat([one[r * T:(r + 1) * T] for r in rows])
+            differ[key] += int(((take != got).any(-1).any(-1) & valid.reshape(-1)).sum())
+        chosen[key].append(take)
+        return take
+
+    def assign(cost):
+        return one_process_rows(plain_assign(cost), "matched")
+
+    def points(*args, **kwargs):
+        return one_process_rows(plain_points(*args, **kwargs), "points")
+
+    matcher.assign_from_cost, crit.get_uncertain_point_coords_with_randomness = assign, points
+    matcher.draw_rows = draw
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with TimedAllReduce() as reduce:
+            metrics = step(batch, torch.Generator(device="cuda").manual_seed(seed))
+            torch.cuda.synchronize()
+    finally:
+        matcher.assign_from_cost = plain_assign
+        crit.get_uncertain_point_coords_with_randomness = plain_points
+        matcher.draw_rows = plain_draw
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = {n: p.grad for n, p in trainable.items()}
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "ms": ms,
+           "launches": launch_counts(), "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "reduce_ms": reduce.ms, "images": len(rows),
+           "grad_digest": _digest(grads), "param_digest": _digest(trainable)}
+    if want is None:
+        out["grads"] = {n: g.cpu() for n, g in grads.items()}
+        out["draws"] = drawn
+        out["matched"] = chosen["matched"][0].cpu()
+        out["points"] = [p.cpu() for p in chosen["points"]]
+        return out
+    out["differ"] = differ
+    out["valid"] = int(valid.sum()) * len(chosen["points"])
+    out["own_digest"] = _digest({f"{key}{i}": t for key, ts in own.items()
+                                 for i, t in enumerate(ts)})
+    out["draws"] = len(drawn)
+    if len(drawn) != len(want["draws"]):
+        draws_unequal.append(f"{len(drawn)} draws, the one process {len(want['draws'])}")
+    out["draws_unequal"] = draws_unequal
+    if distributed:
+        want = want["grads"]
+        top = max(float(g.abs().max()) for g in want.values())
+        worst = (0.0, "")
+        for n, g in grads.items():
+            w = want[n].cuda()
+            bound = max(PARALLEL_GRAD_REL * float(w.abs().max()), PARALLEL_GRAD_FLOOR * top)
+            ratio = float((g - w).abs().max()) / bound
+            worst = max(worst, (ratio, n))
+        out["grad_worst"] = worst
+    return out
+
+
+def _cli_rank(argv, out_dir):
+    """``train_net.main(argv)`` on this rank, with the kernels' launches,
+    who wrote checkpoints and metrics, and the all-reduce's time."""
+    import os
+
+    from odise_torch import train_net
+    from odise_torch.engine.checkpoint import Checkpointer
+    from odise_torch.utils.events import JSONWriter
+
+    _rank_tf32_off()
+    rank = torch.distributed.get_rank()
+    writes = {"checkpoints": 0, "metrics": 0}
+    save, write = Checkpointer.save, JSONWriter.write
+
+    def counted_save(self, *a, **k):
+        writes["checkpoints"] += 1
+        return save(self, *a, **k)
+
+    def counted_write(self, *a, **k):
+        writes["metrics"] += 1
+        return write(self, *a, **k)
+
+    # the rank's process ends after this run: the counters stay in place
+    Checkpointer.save, JSONWriter.write = counted_save, counted_write
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TimedAllReduce() as reduce:
+        run = train_net.main(argv)
+        torch.cuda.synchronize()
+    trainable = {n: p for n, p in run.model.named_parameters() if p.requires_grad}
+    with open(os.path.join(out_dir, f"cli{rank}.json"), "w") as f:
+        json.dump({"seconds": time.perf_counter() - t0, "history": run.history,
+                   "eval": run.eval_results, "launches": launch_counts(),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "writes": writes,
+                   "reduce_ms": reduce.ms, "param_digest": _digest(trainable),
+                   "device": str(next(run.model.parameters()).device)}, f, default=float)
+
+
+# the one-process --eval-only run, in a subprocess so that its datasets
+# register under DETECTRON2_DATASETS
+EVAL_RUNNER = """
+import json, sys
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from odise_torch import train_net
+from odise_torch.ops.ms_deform_attn import ms_deform_attn
+ms_deform_attn.launches = 0
+results = train_net.main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump({"eval": results, "launches": ms_deform_attn.launches}, f, default=float)
+"""
+
+
+def parallel_phase():
+    """Phase 13: training and evaluation over two ranks. (a) The collectives
+    on the card: a one-rank NCCL group and two gloo ranks sharing card 0,
+    each check against the host's values; what NCCL reports for two ranks
+    on one card. (b) One FULL float32 step of phase 8's recipe in one
+    process at batch 2, then on two gloo ranks of one image each (the draws
+    of the batch of 2, sliced; the one process's assignment of queries to
+    targets and sampled points, see ``full_step``): each rank's own uniform
+    draws bitwise equal to its rows of the one process's, the ranks' mean
+    metrics within 1e-4 of the one process's, their all-reduced gradients within 1e-3 of its (each
+    tensor's largest entry, or 1e-6 of the largest of all), both ranks'
+    gradients and updated parameters bitwise equal; CategoryODISE, then
+    CaptionODISE with the negatives gathered over the ranks ("diff").
+    Beside it, not gated: one process at batch 1 on each image, on the
+    batch of 2's draws, and how often its own choices differ from the batch
+    of 2's and from the rank's on that image. (c)
+    ``train_net`` on two gloo ranks on card 0 through ``launch``: the
+    shipped ``odise_label_coco_50e.py`` on phase 12's files, 3 steps at a
+    total batch of 4 (2 a rank), the final eval shared 2 + 1 over the 3
+    val images; both ranks' parameters bitwise equal, only rank 0 writes,
+    both ranks' merged metrics equal to a one-process ``--eval-only
+    --init-from model_final``, 6 + 6 launches a step and 6 an eval image
+    on each rank. Returns the numbers PERF.md and the kernels line take."""
+    import os
+    import shutil
+    import statistics
+    import subprocess
+
+    import torch.distributed as dist
+
+    from odise_torch.engine.launch import launch
+    from odise_torch.parallel import initialize_multihost
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "output", "chip_smoke_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    faults = []
+    t_phase = time.perf_counter()
+
+    # (a) the collectives
+    t0 = time.perf_counter()
+    initialize_multihost(f"file://{root}/nccl_one", 1, 0, device="cuda:0")
+    nccl_one = collective_checks()
+    dist.destroy_process_group()
+    launch(_collectives_rank, PARALLEL_WORLD, dist_url=f"file://{root}/gloo_two",
+           args=(root,), backend="gloo", device="cuda:0")
+    gloo_two = [json.load(open(os.path.join(root, f"collectives{r}.json")))
+                for r in range(PARALLEL_WORLD)]
+    nccl_shared = nccl_shared_card_probe(root)
+    for res in [nccl_one] + gloo_two:
+        log(f"collectives, {res['backend']} world {res['world']} on {res['device']}: largest "
+            f"errors {res['errors']}; all-reduce of 28,591,297 floats "
+            f"{res['all_reduce_28m_ms']:.2f} ms")
+        faults.append((any(e != 0 for e in res["errors"].values()),
+                       f"{res['backend']} world {res['world']}: {res['errors']}"))
+    log(f"two NCCL ranks on one card report: {nccl_shared}")
+    seconds_a = time.perf_counter() - t0
+
+    # (b) one step, one process at batch 2 against two ranks of one image
+    t0 = time.perf_counter()
+    steps = {}
+    for kind in ("category", "caption"):
+        one = full_step(kind, [0, 1])
+        reference = os.path.join(root, f"{kind}_one.pt")
+        torch.save({k: one.pop(k) for k in ("grads", "draws", "matched", "points")}, reference)
+        steps[kind] = {"one": one}
+        torch.cuda.empty_cache()
+        # one process at batch 1 on each image, on the batch of 2's draws:
+        # how often its own choices differ from the batch of 2's without ranks
+        steps[kind]["alone"] = [full_step(kind, [r], reference) for r in range(PARALLEL_WORLD)]
+        torch.cuda.empty_cache()
+    launch(_full_steps_rank, PARALLEL_WORLD, dist_url=f"file://{root}/steps",
+           args=(root,), backend="gloo", device="cuda:0")
+    for kind in ("category", "caption"):
+        ranks = [json.load(open(os.path.join(root, f"{kind}{r}.json")))
+                 for r in range(PARALLEL_WORLD)]
+        one, alone = steps[kind]["one"], steps[kind]["alone"]
+        steps[kind]["ranks"] = ranks
+        log(f"(b) {kind}: the ranks' uniform draws against the one process's rows, bitwise: "
+            + "; ".join(f"rank {r}: {x['draws']} draws, unequal {x['draws_unequal']}"
+                        for r, x in enumerate(ranks))
+            + "; one process at batch 1 on the batch of 2's draws: " + "; ".join(
+                f"image {r}: {a['draws']} draws, unequal {a['draws_unequal']}, "
+                f"{a['ms']:.1f} ms, of its {a['valid']} (layer, valid target) "
+                f"pairs its own auction matched {a['differ']['matched']} to another query "
+                f"and its own sampling chose other points for {a['differ']['points']}; its "
+                f"own choices equal rank {r}'s: {a['own_digest'] == ranks[r]['own_digest']}"
+                for r, a in enumerate(alone)))
+        rel = {k: abs(ranks[0]["metrics"][k] - v) / max(abs(v), 1e-30)
+               for k, v in one["metrics"].items()}
+        worst_metric = max(rel.items(), key=lambda kv: kv[1])
+        log(f"(b) {kind}: one process, batch 2: {one['ms']:.1f} ms, total_loss "
+            f"{one['metrics']['total_loss']:.6e}, grad_norm {one['metrics']['grad_norm']:.4e}, "
+            f"launches {one['launches']}, peak {one['peak_gib']:.2f} GiB; two ranks of one "
+            "image: " + "; ".join(
+                f"rank {r}: {x['ms']:.1f} ms, launches {x['launches']}, peak "
+                f"{x['peak_gib']:.2f} GiB, all-reduce {x['reduce_ms']} ms, gradients' worst "
+                f"{x['grad_worst'][0]:.3g} of the bound ({x['grad_worst'][1]}); of its "
+                f"{x['valid']} (layer, valid target) pairs its own auction matched "
+                f"{x['differ']['matched']} to another query and its own sampling chose "
+                f"other points for {x['differ']['points']}"
+                for r, x in enumerate(ranks))
+            + f"; the ranks' mean metrics' largest relative difference {worst_metric[1]:.3g} "
+            f"({worst_metric[0]}); ranks bitwise equal: gradients "
+            f"{ranks[0]['grad_digest'] == ranks[1]['grad_digest']}, parameters "
+            f"{ranks[0]['param_digest'] == ranks[1]['param_digest']}")
+        faults += [(any(x["draws"] == 0 or x["draws_unequal"] for x in ranks + alone),
+                    f"(b) {kind} draws "
+                    f"{[(x['draws'], x['draws_unequal']) for x in ranks + alone]}"),
+                   (worst_metric[1] > PARALLEL_METRIC_RTOL, f"(b) {kind} metric {worst_metric}"),
+                   (any(x["grad_worst"][0] > 1 for x in ranks),
+                    f"(b) {kind} gradients {[x['grad_worst'] for x in ranks]}"),
+                   (ranks[0]["grad_digest"] != ranks[1]["grad_digest"]
+                    or ranks[0]["param_digest"] != ranks[1]["param_digest"],
+                    f"(b) {kind}: the ranks' gradients or parameters differ"),
+                   (tuple(one["launches"]) != (6, 6)
+                    or any(tuple(x["launches"]) != (6, 6) for x in ranks),
+                    f"(b) {kind} launches"),
+                   (not all(len(x["reduce_ms"]) == 1 for x in ranks),
+                    f"(b) {kind}: not one all-reduce a step")]
+    seconds_b = time.perf_counter() - t0
+
+    # (c) the CLI on two ranks, from phase 12's files
+    t0 = time.perf_counter()
+    written = write_coco_dataset(root)
+    n_val = sum(1 for s, _ in written if s == "val")
+    out = os.path.join(root, "run")
+    config = os.path.join(here, "odise_torch", "configs", "Panoptic", "odise_label_coco_50e.py")
+    opts = [f"train.max_iter={PARALLEL_CLI_STEPS}", "train.log_period=1",
+            "train.device=cuda:0"]
+    argv = ["--config-file", config, "--output", out] + opts
+    saved_root = os.environ.get("DETECTRON2_DATASETS")
+    os.environ["DETECTRON2_DATASETS"] = root  # the ranks register the datasets from it
+    try:
+        launch(_cli_rank, PARALLEL_WORLD, dist_url=f"file://{root}/cli", args=(argv, root),
+               backend="gloo", device="cuda:0")
+    finally:
+        if saved_root is None:
+            os.environ.pop("DETECTRON2_DATASETS")
+        else:
+            os.environ["DETECTRON2_DATASETS"] = saved_root
+    cli = [json.load(open(os.path.join(root, f"cli{r}.json"))) for r in range(PARALLEL_WORLD)]
+    result_file = os.path.join(root, "eval_only.json")
+    proc = subprocess.run(
+        [sys.executable, "-c", EVAL_RUNNER, result_file, "--config-file", config, "--output",
+         os.path.join(root, "eval_only"), "--eval-only", "--init-from",
+         os.path.join(out, "checkpoints", "model_final.pth")] + opts[2:],
+        cwd=here, env=dict(os.environ, DETECTRON2_DATASETS=root), capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"--eval-only failed:\n{proc.stderr[-4000:]}")
+    with open(result_file) as f:
+        one = json.load(f)
+    merged = [{k: v for k, v in c["eval"]["main"].items() if k != "s_per_img"} for c in cli]
+    alone = {k: v for k, v in one["eval"]["main"].items() if k != "s_per_img"}
+    diffs = {k: abs(merged[0][k] - v) / max(abs(v), 1e-30) for k, v in alone.items()}
+    with open(os.path.join(out, "log.txt")) as f:
+        main_log = f.read()
+    files = sorted(os.listdir(out))
+    for r, c in enumerate(cli):
+        ms = [m["time"] * 1e3 for m in c["history"]]
+        data_ms = [m["data_time"] * 1e3 for m in c["history"]]
+        log(f"(c) rank {r} on {c['device']}: {c['seconds']:.1f} s; steps " + ", ".join(
+            f"{t:.1f} ms (data {d:.1f} ms)" for t, d in zip(ms, data_ms))
+            + f", warm median {statistics.median(ms[1:]):.1f} ms; all-reduce "
+            f"{[round(x, 2) for x in c['reduce_ms']]} ms; launches {c['launches']}; peak "
+            f"{c['peak_gib']:.2f} GiB; writes {c['writes']}; eval on "
+            f"{c['eval']['main']['images']} images")
+    log(f"(c) output files {files}; merged metrics equal on both ranks: "
+        f"{merged[0] == merged[1]}; largest relative difference from the one-process "
+        f"--eval-only (launches {one['launches']}) over {len(alone)} metrics "
+        f"{max(diffs.values()):.3g}: PQ {alone.get('PQ')}, mIoU {alone.get('mIoU')}, "
+        f"AP {alone.get('AP')}")
+    own = [6 * (PARALLEL_CLI_STEPS + len(range(r, n_val, PARALLEL_WORLD)))
+           for r in range(PARALLEL_WORLD)]
+    faults += [(cli[0]["param_digest"] != cli[1]["param_digest"],
+                "(c) the ranks' trainable parameters differ"),
+               (cli[1]["writes"] != {"checkpoints": 0, "metrics": 0}
+                or not all(cli[0]["writes"].values()), f"(c) writes {[c['writes'] for c in cli]}"),
+               ("Rank 1 of 2" in main_log or "log.txt.rank1" not in files
+                or "metrics.json" not in files or "checkpoints" not in files,
+                f"(c) files {files}"),
+               (merged[0] != merged[1], "(c) the ranks' merged metrics differ"),
+               (merged[0].get("images") != n_val, f"(c) evaluated {merged[0].get('images')}"),
+               (max(diffs.values()) > 1e-9, f"(c) differs from --eval-only: {diffs}"),
+               (one["launches"] != 6 * n_val, f"(c) --eval-only launches {one['launches']}"),
+               (any(tuple(c["launches"]) != (own[r], 6 * PARALLEL_CLI_STEPS)
+                    for r, c in enumerate(cli)),
+                f"(c) launches {[c['launches'] for c in cli]}, not {own} and "
+                f"{6 * PARALLEL_CLI_STEPS}"),
+               (any(len(c["history"]) != PARALLEL_CLI_STEPS for c in cli), "(c) steps")]
+    seconds_c = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 13: (a) {seconds_a:.1f} s, (b) {seconds_b:.1f} s, (c) {seconds_c:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    for bad, what in faults:
+        if bad:
+            raise AssertionError(f"parallel phase: {what}")
+    return dict(seconds=seconds, nccl_shared=nccl_shared,
+                collectives=[nccl_one] + gloo_two,
+                steps={k: {"one_ms": v["one"]["ms"], "rank_ms": [x["ms"] for x in v["ranks"]],
+                           "launches": [x["launches"] for x in v["ranks"]],
+                           "reduce_ms": [x["reduce_ms"] for x in v["ranks"]]}
+                       for k, v in steps.items()},
+                cli=[{"launches": c["launches"], "peak_gib": c["peak_gib"],
+                      "warm_ms": statistics.median([m["time"] * 1e3 for m in c["history"][1:]]),
+                      "data_ms": [m["data_time"] * 1e3 for m in c["history"]],
+                      "reduce_ms": c["reduce_ms"]} for c in cli])
+
+
+def _full_steps_rank(out_dir):
+    """(b) on this rank: the category step, then the caption step, each
+    against the one process's file."""
+    import os
+
+    rank = torch.distributed.get_rank()
+    for kind in ("category", "caption"):
+        out = full_step(kind, [rank], os.path.join(out_dir, f"{kind}_one.pt"))
+        with open(os.path.join(out_dir, f"{kind}{rank}.json"), "w") as f:
+            json.dump(out, f)
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA card: torch.cuda.is_available() is false",
@@ -2345,6 +2972,12 @@ def main():
         f"{data['peak_gib']:.2f} GiB")
     phase_done(12)
 
+    # 13. two ranks: the collectives, a FULL step against one process, the CLI
+    torch.cuda.empty_cache()
+    par = parallel_phase()
+    log(f"phase 13: {par['seconds']:.1f} s")
+    phase_done(13)
+
     log(card_line())
     bwd_plan = backward_plan(2, sum(h * w for h, w in SHAPES), HEADS, HEAD_DIM, torch.bfloat16,
                              POINTS)
@@ -2360,6 +2993,9 @@ def main():
         "launches_train": train["launches"][0],
         "launches_train_net": {k: v[0] for k, v in cli["launches"].items()},
         "launches_dataset_train_net": data["launches"][0],
+        "launches_parallel": {"step_per_rank": {k: [ln[0] for ln in v["launches"]]
+                                                for k, v in par["steps"].items()},
+                              "train_net_per_rank": [c["launches"][0] for c in par["cli"]]},
         "launches_reference_weights": {"parity": ref_w["parity_launches"],
                                        "demo": [r["launches"] for r in ref_w["demo"]]},
         "reference_weights_512px_f32": {k: ref_w["kernel"][k] for k in (
@@ -2386,7 +3022,10 @@ def main():
         "train_first_step_ms": train["first_ms"], "train_warm_step_ms": train["warm_ms"],
         "train_peak_gib": train["peak_gib"],
         "launches_train_net": {k: v[1] for k, v in cli["launches"].items()},
-        "launches_dataset_train_net": data["launches"][1]}]}),
+        "launches_dataset_train_net": data["launches"][1],
+        "launches_parallel": {"step_per_rank": {k: [ln[1] for ln in v["launches"]]
+                                                for k, v in par["steps"].items()},
+                              "train_net_per_rank": [c["launches"][1] for c in par["cli"]]}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Synthetic train-then-evaluate convergence run (counterpart of
-``tools/convergence.py``, one process).
+``tools/convergence.py``).
 
 Trains TINY CategoryODISE or CaptionODISE on the synthetic shapes task
 (``data/synthetic.py``: a red rectangle, a blue disk, grass) with the full
@@ -12,9 +12,14 @@ learns with no category label at all: open-vocabulary classification has
 to emerge from the grounding loss between mask and caption-word embeds.
 
     python -m odise_torch.convergence [--variant caption] [--steps 100] [--shipped-category]
+        [--world-size 2 [--collect-mode diff]]
 
 prints one JSON line with the loss curve's ends and the metrics before and
-after. It runs on the card; ``--cpu`` runs it on the CPU.
+after. It runs on the card; ``--cpu`` runs it on the CPU. ``--world-size``
+runs it on that many ranks (``engine.launch``), each with its share of the
+batch, the caption grounding's negatives gathered over the ranks by
+``--collect-mode``, the evaluation shared out: the counterpart of the JAX
+run's ``--data-mesh``, which shards the batch over one process's devices.
 """
 
 from __future__ import annotations
@@ -57,13 +62,31 @@ def run_convergence(
     backbone_in_size=None,
     collect_mode=None,
     device=None,
+    world_size: int = 1,
 ) -> dict:
     """``use_checkpoint``, ``slide_training`` and ``backbone_in_size`` turn on
     the shipped category training features (the serial checkpointed slide
     over a crop grid); ``collect_mode`` is the caption grounding's, which on
     one process means the local batch. ``device`` defaults to CUDA.
-    The JAX run writes its records to PNG files under an output directory;
-    these are in memory."""
+    ``world_size`` > 1 runs on that many ranks through ``engine.launch``
+    (``device`` as ``launch`` takes it), each loading
+    ``batch / world_size`` images a step; it returns rank 0's result, which
+    every rank shares. The JAX run writes its records to PNG files under an
+    output directory; these are in memory."""
+    kwargs = dict(locals())
+    if world_size > 1:
+        import os
+        import tempfile
+
+        from .engine.launch import launch
+
+        del kwargs["world_size"]
+        with tempfile.TemporaryDirectory() as tmp:
+            launch(_convergence_rank, world_size, dist_url=f"file://{tmp}/rendezvous",
+                   args=(kwargs, os.path.join(tmp, "result.json")), device=device)
+            with open(os.path.join(tmp, "result.json")) as f:
+                return json.load(f)
+
     from . import train_net
     from .config import ConfigDict
     from .data.catalog import DatasetCatalog, MetadataCatalog
@@ -75,6 +98,7 @@ def run_convergence(
     from .losses import CriterionConfig, GroundingConfig
     from .model_zoo.factory import build_caption_odise, build_category_odise, resolve_device
     from .models.clip.tokenizer import tokenize
+    from .parallel import get_rank, get_world_size
 
     assert variant in ("category", "caption"), variant
     caption = variant == "caption"
@@ -118,7 +142,8 @@ def run_convergence(
     mapper = COCOPanopticDatasetMapper(image_size=size, max_instances=max_instances,
                                        with_captions=caption, num_words=4 if caption else 8,
                                        device=device)
-    loader = build_train_loader(train_records, mapper, batch, seed=seed)
+    loader = build_train_loader(train_records, mapper, batch, num_hosts=get_world_size(),
+                                host_id=get_rank(), seed=seed)
     eval_cfg = ConfigDict(dataloader=ConfigDict(
         wrapper=ConfigDict(labels=[list(l) for l in SYNTH_LABELS], dataset_name=dataset_name,
                            semantic_on=True, panoptic_on=True, instance_on=True),
@@ -157,6 +182,7 @@ def run_convergence(
         "variant": variant,
         "steps": steps,
         "batch": batch,
+        "world_size": get_world_size(),
         "accum_steps": accum_steps,
         "lr": lr,
         "loss_first10_mean": float(np.mean(losses[:k])),
@@ -167,6 +193,15 @@ def run_convergence(
         "train_seconds": train_s,
         "sec_per_step": train_s / steps,
     }
+
+
+def _convergence_rank(kwargs: dict, result_path: str) -> None:
+    from .parallel import get_rank
+
+    result = run_convergence(**kwargs)
+    if get_rank() == 0:
+        with open(result_path, "w") as f:
+            json.dump(result, f)
 
 
 def main():
@@ -188,6 +223,7 @@ def main():
                     "model's 64-px backbone window)")
     ap.add_argument("--collect-mode", default=None, choices=["diff", "concat"])
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--world-size", type=int, default=1, help="ranks (engine.launch)")
     args = ap.parse_args()
     shipped = {}
     if args.shipped_category:
@@ -198,7 +234,8 @@ def main():
         accum_steps=args.accum_steps, lr=args.lr, grad_clip=args.grad_clip,
         n_train=args.n_train, n_val=args.n_val, num_points=args.num_points,
         seed=args.seed, eval_before=not args.no_eval_before,
-        collect_mode=args.collect_mode, device="cpu" if args.cpu else None, **shipped)
+        collect_mode=args.collect_mode, device="cpu" if args.cpu else None,
+        world_size=args.world_size, **shipped)
     print(json.dumps(result))
 
 

@@ -1,8 +1,9 @@
-"""Data loaders (counterpart of ``odise_tpu/data/loader.py`` for one
-process): an infinite seeded shuffle of records, mapped and
-collated into batches, with the JAX loader's sampler and augmentation
-seeds, so that both packages see the same images with the same flips,
-scales and crops; and a sequential test pass.
+"""Data loaders (counterpart of ``odise_tpu/data/loader.py``): an infinite
+seeded shuffle of records, mapped and collated into batches, each host (a
+rank of a multi-process run) taking its own slice of the stream, with the
+JAX loader's sampler and augmentation seeds, so that both packages see the
+same images with the same flips, scales and crops; and a sequential test
+pass.
 
 A dataset is a list of records or the name of one registered in
 ``data.catalog.DatasetCatalog``.
@@ -10,6 +11,7 @@ A dataset is a list of records or the name of one registered in
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, Iterator, List, Optional, Union
 
 import numpy as np
@@ -42,15 +44,25 @@ class TrainingSampler:
 
 
 def build_train_loader(dataset: Dataset, mapper: Callable, total_batch_size: int,
-                       *, seed: int = 42) -> Iterator[Dict[str, torch.Tensor]]:
-    """Yield collated batches of ``total_batch_size``, forever, on the
-    mapper's device (CUDA unless the mapper was built with ``device="cpu"``)."""
+                       *, num_hosts: int = 1, host_id: int = 0,
+                       seed: int = 42) -> Iterator[Dict[str, torch.Tensor]]:
+    """Yield collated batches of ``total_batch_size / num_hosts``, forever,
+    on the mapper's device (CUDA unless the mapper was built with
+    ``device="cpu"``). Host ``host_id`` takes every ``num_hosts``-th index of
+    the shared stream from the ``host_id``-th on, and augments with its own
+    ``RandomState(seed * 1000 + host_id)``."""
+    if total_batch_size % num_hosts:
+        raise ValueError(f"a total batch of {total_batch_size} does not split over "
+                         f"{num_hosts} hosts")
+    if not 0 <= host_id < num_hosts:
+        raise ValueError(f"host {host_id} of {num_hosts}")
     records = _records(dataset)
-    sampler = iter(TrainingSampler(len(records), seed=seed))
-    rng = np.random.RandomState(seed * 1000)  # the JAX loader's, for host 0
+    per_host = total_batch_size // num_hosts
+    sampler = itertools.islice(iter(TrainingSampler(len(records), seed=seed)),
+                               host_id, None, num_hosts)
+    rng = np.random.RandomState(seed * 1000 + host_id)
     while True:
-        yield collate([mapper(records[next(sampler)], rng=rng)
-                       for _ in range(total_batch_size)])
+        yield collate([mapper(records[next(sampler)], rng=rng) for _ in range(per_host)])
 
 
 def build_test_loader(dataset: Dataset, mapper: Optional[Callable] = None,

@@ -7,6 +7,17 @@ metrics as device scalars. The metric keys are the JAX step's: every loss,
 ``total_loss``, ``grad_norm``, ``clipped_grad_norm`` and ``loss_scale``
 (identically 1: bf16 compute needs no loss scaling). ``Trainer`` reads the
 metrics once per ``log_period`` window, its only host sync.
+
+Over W ranks (``torch.distributed``, one process per card) each rank runs
+the step on its slice of the batch; the trainable gradients are averaged
+over the ranks in one all-reduce of one flat buffer before the clip, which
+so acts on the global norm, and the metrics are averaged too. Together with
+the criterion's global counts and draws (``losses/set_criterion.py``) and
+the grounding loss's gathered negatives, the step is the JAX package's one
+global step on the union batch, and every rank's parameters stay equal.
+``DistributedDataParallel`` is not used: the training forward runs the
+towers on 4 crops under ``torch.utils.checkpoint`` and may loop over
+micro-batches, where DDP's reducer expects one forward per backward.
 """
 
 from __future__ import annotations
@@ -19,6 +30,8 @@ import torch
 
 from ..losses import CriterionConfig, mask_grounding_criterion, set_criterion
 from ..losses.grounding import GroundingConfig
+from ..parallel.multihost import (all_reduce_mean_, all_reduce_sum, gather_pickled,
+                                  get_world_size)
 from .optimizer import clip_by_global_norm_, global_norm
 
 __all__ = ["FROZEN_TOWER_KEYWORDS", "Trainer", "check_finite", "is_frozen_path",
@@ -73,6 +86,12 @@ def _make_grads_and_losses(loss_fn, params: List[torch.nn.Parameter], accum_step
     does: k equal micro-batches in turn, each with the DDP-equivalent
     number of masks (the mean over the micro-batches of each one's clamped
     target count), gradients and losses summed and scaled by 1/k.
+
+    Over W ranks micro-step i is collective: it takes the i-th micro-batch
+    of every rank, and its target count (clamped) is theirs summed. So W
+    ranks of k micro-batches of m rows are one process with ``accum_steps=k``
+    on the union batch ordered micro-step by micro-step, rank by rank: rows
+    [rank 0's i-th m, rank 1's i-th m, ...] for i = 0 .. k-1.
     """
 
     def grads_and_losses(batch, generator):
@@ -83,8 +102,8 @@ def _make_grads_and_losses(loss_fn, params: List[torch.nn.Parameter], accum_step
             total.backward()
             return total.detach(), {k: v.detach() for k, v in losses.items()}
         micro = _split(batch, accum_steps)
-        nm = torch.stack([torch.clamp(mb["gt_valid"].float().sum(), min=1.0)
-                          for mb in micro]).mean()
+        counts = all_reduce_sum(torch.stack([mb["gt_valid"].float().sum() for mb in micro]))
+        nm = torch.clamp(counts, min=1.0).mean()
         total_sum, loss_sum = None, None
         for mb in micro:
             total, losses = loss_fn(mb, generator, nm)
@@ -110,16 +129,28 @@ def _make_step(model, optimizer, loss_fn, grad_clip: float, accum_steps: int):
     params = [p for p in model.parameters() if p.requires_grad]
     grads_and_losses = _make_grads_and_losses(loss_fn, params, accum_steps)
 
+    checked = []
+
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         total, losses = grads_and_losses(batch, generator)
         grads = [p.grad for p in params if p.grad is not None]
+        metrics = dict(losses)
+        metrics["total_loss"] = total
+        if get_world_size() > 1:
+            if not checked:  # every rank must reduce the same tensors
+                layouts = gather_pickled([tuple(g.shape) for g in grads])
+                if any(lay != layouts[0] for lay in layouts):
+                    raise RuntimeError("the ranks' trainable gradients differ in layout")
+                checked.append(True)
+            keys = sorted(metrics)
+            mean = torch.stack([metrics[k].float().reshape(()) for k in keys])
+            all_reduce_mean_(grads + [mean])
+            metrics = dict(zip(keys, mean.unbind()))
         gnorm = global_norm(grads)
         if grad_clip:
             clip_by_global_norm_(grads, grad_clip, gnorm)
         optimizer.step()
-        metrics = dict(losses)
-        metrics["total_loss"] = total
         metrics["grad_norm"] = gnorm
         metrics["clipped_grad_norm"] = torch.clamp(gnorm, max=grad_clip)
         metrics["loss_scale"] = torch.ones((), device=gnorm.device)

@@ -1,6 +1,14 @@
 """Open-vocabulary evaluation of one task (counterpart of one task of
-``do_test`` in ``tools/train_net.py``, without the config system, several
-hosts or sharding).
+``do_test`` in ``tools/train_net.py``, without the config system).
+
+With ``across_ranks`` and several ranks (``torch.distributed``) each rank
+evaluates ``records[rank::world]`` and the evaluators' statistics (the
+semantic confusion matrix, ``PQStat``, the instance entries, the image and
+host-fallback counts) are gathered and merged in rank order before the
+metrics are computed, so that every rank returns the same metrics, those of
+one process over all the records. With one process per card this is the
+port's counterpart of JAX's ``ShardedOpenPanopticInference``, which spreads
+one process's images over its devices.
 
 Per record: resize the shorter side, pad to a multiple of 64 and then into
 its shape bucket, run the model, and score it. With ``device_stats`` the
@@ -38,6 +46,7 @@ from ..data.transforms import (AugInput, ResizeShortestEdge, resize_bilinear,
                                resize_nearest, rgb2id)
 from ..models.inference import (instance_inference, panoptic_inference,
                                 semantic_inference)
+from ..parallel.multihost import gather_pickled, get_rank, get_world_size
 from .buckets import compute_eval_buckets, pick_bucket
 from .device_eval import DeviceEvalRunner
 from .evaluator import print_csv_format
@@ -114,7 +123,7 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
                         panoptic_on: bool = True, instance_on: bool = True,
                         ignore_label: int = IGNORE_LABEL,
                         inst_gt_index: Optional[Dict[int, List[dict]]] = None,
-                        task: str = "main") -> Dict[str, float]:
+                        task: str = "main", across_ranks: bool = False) -> Dict[str, float]:
     """Evaluate ``infer`` (images [1, H, W, 3] -> (mask_cls, mask_pred), with
     the fusion settings on ``infer.model``) over ``records`` against a
     vocabulary of ``labels`` with a [K] bool ``thing_mask``. Returns the
@@ -123,7 +132,8 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
     ``device_stats``, ``host_fallback_images``; logs them under ``task``.
     ``inst_gt_index`` (image id -> COCO annotations) is the instance gt of
     records without ``annotations``. Image files are decoded on
-    ``infer.device``."""
+    ``infer.device``. ``across_ranks`` shares the records out over the ranks
+    and merges their statistics (see the module's docstring)."""
     model = infer.model
     device = getattr(infer, "device", None)
     obj_thr = float(model.object_mask_threshold)
@@ -134,11 +144,16 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
     thing_t = torch.from_numpy(thing_np)
     buckets = compute_eval_buckets(short_side, max_size)
     resize = ResizeShortestEdge(short_side, max_size)
+    if across_ranks:
+        records = list(records)[get_rank()::get_world_size()]
 
-    sem_ev = SemSegEvaluator(num_classes=K, ignore_label=ignore_label)
-    pan_ev = PanopticEvaluator(categories=list(range(K)),
-                               isthing_map={i: bool(thing_np[i]) for i in range(K)})
-    inst_ev = InstanceSegEvaluator(num_classes=K)
+    def evaluators():
+        return (SemSegEvaluator(num_classes=K, ignore_label=ignore_label),
+                PanopticEvaluator(categories=list(range(K)),
+                                  isthing_map={i: bool(thing_np[i]) for i in range(K)}),
+                InstanceSegEvaluator(num_classes=K))
+
+    sem_ev, pan_ev, inst_ev = evaluators()
     runner = (DeviceEvalRunner(num_classes=K, thing_mask=thing_np,
                                object_mask_threshold=obj_thr,
                                overlap_threshold=ovl_thr, topk=topk,
@@ -237,6 +252,19 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
     dt = time.perf_counter() - t_start
     if runner is not None:
         sem_ev.add_confusion(runner.flush_confusion())
+    if across_ranks and get_world_size() > 1:
+        # every rank merges every rank's statistics in rank order, so that
+        # the float sums, and the metrics, are the same on all of them
+        states = gather_pickled((sem_ev.conf, pan_ev.stat, inst_ev._by_img_cat,
+                                 inst_ev._img_counter, n, n_fallback))
+        sem_ev, pan_ev, inst_ev = evaluators()
+        n = n_fallback = 0
+        for conf, stat, by_img_cat, img_counter, n_rank, fallback_rank in states:
+            sem_ev.add_confusion(conf)
+            pan_ev.merge_stat(stat)
+            inst_ev.merge_state(by_img_cat, img_counter)
+            n += n_rank
+            n_fallback += fallback_rank
     r = {}
     if semantic_on:
         r.update(sem_ev.evaluate())

@@ -1,12 +1,16 @@
 """Mask-word grounding criterion (counterpart of
-``odise_tpu/losses/grounding.py`` on one process): symmetric image-caption
-InfoNCE between mask and word embeddings, each image-text similarity a
-softmax-attention pool over the queries.
+``odise_tpu/losses/grounding.py``): symmetric image-caption InfoNCE between
+mask and word embeddings, each image-text similarity a softmax-attention
+pool over the queries.
 
-``collect_mode`` ("diff", "concat" or None) says how the JAX criterion
-gathers the negatives across devices. On one process every mode means the
-local batch, which is what each computes at world size 1; the port has no
-gather yet and refuses a world size above 1.
+``collect_mode`` says how the negatives are gathered across ranks
+(``torch.distributed``): ``"diff"`` gathers every rank's mask and word
+embeddings with their gradients (the reference's diffdist, JAX's
+``lax.all_gather``), ``"concat"`` gathers them as constants, so that the
+gradients flow only through each product's local factor; ``None`` takes
+the local batch alone. At world size 1 the three are the same. Each rank
+weighs the image-to-text term by its own images' caption validity, as the
+JAX package's collective path does (ROADMAP C28).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.helper import l2_normalize
+from ..parallel.multihost import all_gather_rows, get_rank, get_world_size
 
 __all__ = ["GroundingConfig", "mask_grounding_criterion"]
 
@@ -44,21 +49,32 @@ def _one_layer_loss(outputs, word_valid_mask, cfg):
     w = w.reshape(B * K, C)
     valid = word_valid_mask.bool().any(dim=-1)                        # [B]
 
-    # [B, Q, B, K] similarity of every mask with every word; the pool over
-    # queries gives [B (images), B (texts)]
-    sim_mw = (m @ w.T * logit_scale).reshape(B, Q, B, K)
-    sim_img_txt = (torch.softmax(sim_mw, dim=1) * sim_mw).sum(dim=1).mean(-1)
-    labels = torch.arange(B, device=m.device)
+    def pool(masks, words):
+        # [Bm, Q, Bw, K] similarity of every mask with every word; the pool
+        # over queries gives [Bm (images), Bw (texts)]
+        sim = (masks @ words.T * logit_scale).reshape(-1, Q, words.shape[0] // K, K)
+        return (torch.softmax(sim, dim=1) * sim).sum(dim=1).mean(-1)
 
-    # loss 1: each text against every image
-    logp1 = F.log_softmax(sim_img_txt.T, dim=-1)
+    if cfg.collect_mode is None or get_world_size() == 1:
+        labels = torch.arange(B, device=m.device)
+        sim_g_img_txt = sim_img_g_txt = pool(m, w)
+    else:
+        diff = cfg.collect_mode == "diff"
+        gm, gw = all_gather_rows(m, diff), all_gather_rows(w, diff)  # [W*B*Q, C], [W*B*K, C]
+        labels = torch.arange(B, device=m.device) + B * get_rank()
+        sim_g_img_txt = pool(gm, w)   # [W*B, B]: every image against the local texts
+        sim_img_g_txt = pool(m, gw)   # [B, W*B]: the local images against every text
+
+    # loss 1: each local text against every image
+    logp1 = F.log_softmax(sim_g_img_txt.T, dim=-1)
     l1 = -logp1.gather(1, labels[:, None])[:, 0]
     l1 = (l1 * valid.to(l1.dtype)).mean()
 
-    # loss 2: each image against every text, weighted by the text's validity
-    logp2 = F.log_softmax(sim_img_txt, dim=-1)
+    # loss 2: each local image against every text, weighted by its own
+    # text's validity
+    logp2 = F.log_softmax(sim_img_g_txt, dim=-1)
     l2_all = -logp2.gather(1, labels[:, None])[:, 0]
-    wsum = valid.to(l2_all.dtype)[labels]
+    wsum = valid.to(l2_all.dtype)
     l2 = torch.sum(l2_all * wsum) / torch.clamp(torch.sum(wsum), min=1e-6)
     l2 = torch.where(torch.isfinite(l2), l2, l2_all.mean())
     return {"loss_mask_word": 0.5 * (l1 + l2) * cfg.loss_weight}
@@ -69,12 +85,6 @@ def mask_grounding_criterion(outputs: Dict, word_valid_mask: torch.Tensor,
                              ) -> Dict[str, torch.Tensor]:
     """outputs: mask_embed, word_embed, logit_scale and aux_outputs;
     word_valid_mask [B, K] bool."""
-    if (cfg.collect_mode is not None and torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            f"collect_mode={cfg.collect_mode!r} across {torch.distributed.get_world_size()} "
-            "processes: the port's grounding loss gathers no negatives yet")
     losses = dict(_one_layer_loss(outputs, word_valid_mask, cfg))
     if cfg.deep_supervision and "aux_outputs" in outputs:
         for i, aux in enumerate(outputs["aux_outputs"]):

@@ -5,7 +5,10 @@ by an image's masks, solved on the device by the batched auction.
 
 Every uniform draw of the criterion goes through ``draw_uniform``. The JAX
 package draws with ``jax.random``, which torch cannot reproduce, so the
-tests replace this one function with JAX's own draws.
+tests replace this one function with JAX's own draws. Over several ranks
+each rank draws the whole batch's rows and keeps its own (``draw_rows``),
+as the JAX package's one global step draws from one key over the global
+batch.
 """
 
 from __future__ import annotations
@@ -17,9 +20,10 @@ import torch.nn.functional as F
 
 from ..ops.grid_sample import point_sample_binary, sample_nchw
 from ..ops.lap import assign_from_cost
+from ..parallel.multihost import get_rank, get_world_size
 
 __all__ = ["assign_from_cost", "batch_dice_cost", "batch_sigmoid_ce_cost",
-           "draw_uniform", "match_cost_matrix"]
+           "draw_rows", "draw_uniform", "match_cost_matrix"]
 
 
 def draw_uniform(generator: Optional[torch.Generator], shape: Tuple[int, ...],
@@ -28,6 +32,19 @@ def draw_uniform(generator: Optional[torch.Generator], shape: Tuple[int, ...],
     "oversample" or "random") and ``layer`` (the decoder layer, 0 = final)
     name the draw; this version ignores them and draws from ``generator``."""
     return torch.rand(shape, generator=generator, device=device)
+
+
+def draw_rows(generator: Optional[torch.Generator], shape: Tuple[int, ...],
+              device, kind: str, layer: int) -> torch.Tensor:
+    """This rank's ``shape[0]`` rows of one ``draw_uniform`` over every
+    rank's rows (the ranks hold equal batches and seed ``generator`` alike):
+    the draw the one-process step on the union batch makes, sliced."""
+    world = get_world_size()
+    if world == 1:
+        return draw_uniform(generator, shape, device, kind, layer)
+    n = shape[0]
+    rows = draw_uniform(generator, (world * n,) + tuple(shape[1:]), device, kind, layer)
+    return rows[get_rank() * n:(get_rank() + 1) * n]
 
 
 def batch_sigmoid_ce_cost(pred_pts: torch.Tensor, tgt_pts: torch.Tensor) -> torch.Tensor:
@@ -67,8 +84,7 @@ def match_cost_matrix(pred_logits: torch.Tensor, pred_masks: torch.Tensor,
     prob = torch.softmax(pred_logits.float(), dim=-1)
     cc = -torch.gather(prob, 2, gt_labels.long().clamp(0, K1 - 2)[:, None, :]
                        .expand(B, Q, T))
-    pts = draw_uniform(generator, (B, num_points, 2), pred_logits.device,
-                       "match", layer)
+    pts = draw_rows(generator, (B, num_points, 2), pred_logits.device, "match", layer)
     pred_pts = sample_nchw(pred_masks.float(), pts)                       # [B, Q, P]
     H, W = gt_masks.shape[-2:]
     tgt_pts = point_sample_binary(

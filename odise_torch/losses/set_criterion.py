@@ -7,6 +7,15 @@ decoder layer. Targets are padded to a fixed count with a validity mask.
 The random points come from ``matcher.draw_uniform`` in the JAX package's
 order: the matching points of every layer, then per layer the oversampled
 candidates and the random top-up.
+
+Over W ranks (``torch.distributed``) each rank holds its slice of the
+batch, and the mean over the ranks of their losses and gradients is the
+JAX package's one global step on the union batch: the draws are the union
+batch's, sliced (``matcher.draw_rows``); the target count and each layer's
+class-weight sum are summed over the ranks in one all-reduce, and each rank
+divides by the union's over W. (Mask2Former's DDP criterion clamps the
+mean count instead, ``clamp(N / W, min=1)``, and averages the class loss
+over each rank's own weights; ROADMAP C27.)
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import torch.nn.functional as F
 
 from . import matcher
 from ..ops.grid_sample import point_sample_binary, sample_nchw
+from ..parallel.multihost import all_reduce_sum, get_world_size
 
 __all__ = ["CriterionConfig", "get_uncertain_point_coords_with_randomness",
            "set_criterion"]
@@ -51,7 +61,7 @@ def get_uncertain_point_coords_with_randomness(
     N = mask_logits.shape[0]
     dev = mask_logits.device
     n_sampled = int(num_points * oversample_ratio)
-    cand = matcher.draw_uniform(generator, (N, n_sampled, 2), dev, "oversample", layer)
+    cand = matcher.draw_rows(generator, (N, n_sampled, 2), dev, "oversample", layer)
     logits = sample_nchw(mask_logits[:, None], cand)[:, 0]            # [N, S]
     uncertainty = -logits.abs()
     n_unc = int(importance_sample_ratio * num_points)
@@ -59,27 +69,34 @@ def get_uncertain_point_coords_with_randomness(
     idx = torch.sort(uncertainty, dim=-1, descending=True, stable=True).indices[:, :n_unc]
     unc_pts = torch.gather(cand, 1, idx[..., None].expand(N, n_unc, 2))
     if n_rand > 0:
-        rand_pts = matcher.draw_uniform(generator, (N, n_rand, 2), dev, "random", layer)
+        rand_pts = matcher.draw_rows(generator, (N, n_rand, 2), dev, "random", layer)
         return torch.cat([unc_pts, rand_pts], dim=1)
     return unc_pts
 
 
+def _class_targets(Q, targets, matched, cfg):
+    """The matched targets' labels in a [B, Q] class map (the no-object
+    class elsewhere) and each entry's weight in the class loss."""
+    B = matched.shape[0]
+    valid = targets["valid"].bool()
+    target_classes = torch.full((B, Q + 1), cfg.num_classes, dtype=torch.long,
+                                device=matched.device)
+    target_classes.scatter_(1, torch.where(valid, matched, Q), targets["labels"].long())
+    target_classes = target_classes[:, :Q]
+    return target_classes, torch.where(target_classes == cfg.num_classes, cfg.eos_coef, 1.0)
+
+
 def _one_layer_losses(pred_logits, pred_masks, targets, matched, cfg, num_masks,
-                      generator, layer):
+                      class_weight_sum, generator, layer):
     B, Q, K1 = pred_logits.shape
     T = targets["labels"].shape[1]
     valid = targets["valid"].bool()
 
-    # classification: matched targets' labels into a [B, Q] class map
-    target_classes = torch.full((B, Q + 1), cfg.num_classes, dtype=torch.long,
-                                device=pred_logits.device)
-    target_classes.scatter_(1, torch.where(valid, matched, Q),
-                            targets["labels"].long())
-    target_classes = target_classes[:, :Q]
+    target_classes, w = _class_targets(Q, targets, matched, cfg)
     logp = F.log_softmax(pred_logits.float(), dim=-1)
     ce = -torch.gather(logp, 2, target_classes[..., None])[..., 0]
-    w = torch.where(target_classes == cfg.num_classes, cfg.eos_coef, 1.0)
-    loss_ce = torch.sum(ce * w) / torch.sum(w)
+    loss_ce = torch.sum(ce * w) / (torch.sum(w) if class_weight_sum is None
+                                   else class_weight_sum)
 
     # masks: the matched prediction of every (valid or padded) target
     h, w_ = pred_masks.shape[-2:]
@@ -118,12 +135,10 @@ def set_criterion(outputs: Dict, targets: Dict[str, torch.Tensor],
     outputs: pred_logits [B, Q, K+1], pred_masks [B, Q, h, w] and
     aux_outputs (a list of the same). targets: labels [B, T] int, masks
     [B, T, H, W] binary, valid [B, T] bool. ``num_masks_override`` replaces
-    the local target count (gradient accumulation's DDP-equivalent count).
+    the target count of the whole batch (gradient accumulation's
+    DDP-equivalent count); over several ranks it is the count of every
+    rank's rows, which each rank divides by the world size.
     """
-    if num_masks_override is not None:
-        num_masks = num_masks_override
-    else:
-        num_masks = torch.clamp(targets["valid"].float().sum(), min=1.0)
     layers = [outputs] + (list(outputs.get("aux_outputs", []))
                           if cfg.deep_supervision else [])
     # every layer's costs first, then ONE auction over every (layer, image)
@@ -135,11 +150,25 @@ def set_criterion(outputs: Dict, targets: Dict[str, torch.Tensor],
         generator=generator, layer=i) for i, l in enumerate(layers)]
     B = costs[0].shape[0]
     matched_all = matcher.assign_from_cost(torch.cat(costs, dim=0))
+    matched = [matched_all[i * B:(i + 1) * B] for i in range(len(layers))]
+    count = targets["valid"].float().sum()
+    world = get_world_size()
+    class_weight_sums = [None] * len(layers)
+    if world > 1:
+        # the union batch's target count and class-weight sums, one collective
+        Q = layers[0]["pred_logits"].shape[1]
+        sums = all_reduce_sum(torch.stack(
+            [count] + [_class_targets(Q, targets, m, cfg)[1].sum() for m in matched]))
+        count, class_weight_sums = sums[0], list(sums[1:] / world)
+    if num_masks_override is not None:
+        num_masks = num_masks_override / world
+    else:
+        num_masks = torch.clamp(count, min=1.0) / world
     losses: Dict[str, torch.Tensor] = {}
     for i, layer_out in enumerate(layers):
         ld = _one_layer_losses(
             layer_out["pred_logits"].float(), layer_out["pred_masks"].float(),
-            targets, matched_all[i * B:(i + 1) * B], cfg, num_masks, generator, i)
+            targets, matched[i], cfg, num_masks, class_weight_sums[i], generator, i)
         if i == 0:
             losses.update(ld)
         else:

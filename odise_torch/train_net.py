@@ -1,16 +1,28 @@
-"""Train and evaluate from a config (counterpart of ``tools/train_net.py``,
-one process).
+"""Train and evaluate from a config (counterpart of ``tools/train_net.py``).
 
     python -m odise_torch.train_net --config-file odise_torch/configs/Panoptic/odise_label_coco_50e.py \\
+        [--num-gpus N] [--num-machines M --machine-rank R --dist-url tcp://host:port] \\
         [--eval-only] [--resume] [--init-from PATH] [--output DIR] [a.b.c=value ...]
 
-Loads the lazy config, scales it to one worker (``auto_scale_workers``),
+Loads the lazy config, scales it to the world size (``auto_scale_workers``),
 applies ``--output``/``--tag``/``--ref`` and the dotted overrides, sets up the
 output directory (``log.txt``, ``config.yaml``, seeds), then trains
 (``do_train``: checkpoints under ``<output>/checkpoints``, ``metrics.json``,
 periodic and final evaluation) or evaluates (``do_test``). The model runs on
 ``train.device``: CUDA in the shipped configs, which raises without a card;
 ``train.device=cpu`` runs on the CPU. Nothing falls back to the CPU.
+
+``--num-gpus N`` starts N processes on this machine through
+``engine.launch`` (``--num-machines``, ``--machine-rank`` and ``--dist-url``
+join several machines): rank r trains on card r over NCCL, or on the CPU
+over gloo with ``train.device=cpu``. Each rank loads its slice of the batch
+(the loader's ``num_hosts``/``host_id``), the train step averages the
+gradients over the ranks, and the evaluation shares the records out over
+the ranks and merges their statistics (``dataloader.eval_multihost``,
+default on). Only rank 0 writes ``log.txt``, ``config.yaml``,
+``metrics.json`` and the checkpoints; rank r > 0 logs to ``log.txt.rank<r>``.
+The CLI never puts two ranks on one card: ``train.device=cuda:k`` with
+``--num-gpus`` above 1 raises (``engine.launch``).
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from .data.datasets.register_coco import load_instance_gt_index
 from .engine.checkpoint import BestCheckpointer, Checkpointer
 from .engine.defaults import default_setup
 from .engine.hooks import EvalHook, PeriodicCheckpointer, PeriodicWriter
+from .engine.launch import launch
 from .engine.optimizer import make_optimizer
 from .engine.train_loop import (Trainer, make_caption_train_step, make_category_train_step,
                                 partition_params)
@@ -38,6 +51,7 @@ from .evaluation.run import evaluate_open_vocab
 from .model_zoo.factory import resolve_device
 from .models.clip.tokenizer import tokenize
 from .models.wrapper import OpenPanopticInference, build_open_vocabulary
+from .parallel.multihost import get_rank, get_world_size, is_main_process, sync_global_devices
 from .utils.events import (CommonMetricPrinter, EventStorage, JSONWriter, WandbWriter,
                            WriterStack)
 
@@ -60,14 +74,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="reference world size for auto scaling")
     p.add_argument("--max-eval-images", type=int, default=-1,
                    help="cap eval images per task (smoke runs)")
+    p.add_argument("--num-gpus", type=int, default=1, help="processes (cards) per machine")
+    p.add_argument("--num-machines", type=int, default=1)
+    p.add_argument("--machine-rank", type=int, default=0, help="this machine's rank")
+    p.add_argument("--dist-url", default="auto",
+                   help="the process group's rendezvous: tcp://host:port, file:///path, "
+                        "or auto (a free port on this machine)")
     p.add_argument("opts", nargs=argparse.REMAINDER,
                    help="dotted config overrides: a.b.c=value")
     return p.parse_args(argv)
 
 
 def setup(args: argparse.Namespace):
-    """The run's config: loaded, scaled to one worker, overridden; the output
-    directory set up. Raises if ``train.device`` is CUDA and there is no card."""
+    """The run's config: loaded, scaled to the world size, overridden; the
+    output directory set up. In a process group a CUDA ``train.device``
+    becomes the rank's card. Raises if ``train.device`` is CUDA and there is
+    no card."""
     cfg = load_config(args.config_file)
     if args.output:
         cfg.train.output_dir = args.output
@@ -75,10 +97,12 @@ def setup(args: argparse.Namespace):
         cfg.train.run_tag = args.tag
     if args.ref > 0:
         cfg.train.reference_world_size = args.ref
-    cfg = auto_scale_workers(cfg, 1)
+    cfg = auto_scale_workers(cfg, get_world_size())
     if args.opts:
         apply_overrides(cfg, [o for o in args.opts if "=" in o])
-    resolve_device(cfg.train.device)
+    device = resolve_device(cfg.train.device)
+    if get_world_size() > 1 and device.type == "cuda":
+        cfg.train.device = f"cuda:{torch.cuda.current_device()}"
     default_setup(cfg, args)
     return cfg
 
@@ -113,7 +137,9 @@ def do_test(cfg, model, max_images: int = -1, final_iter: bool = True) -> Dict[s
     task is skipped with a warning, as in ``tools/train_net.py``, where its
     dataset is not registered or fails to load, has no records, or its first
     record's image file is absent. The main task in that state raises: a run
-    does not go on without its evaluation."""
+    does not go on without its evaluation. Under ``dataloader.eval_multihost``
+    (default True) the ranks share each task's records and return the same
+    merged metrics."""
     tasks = {"main": cfg.dataloader.wrapper}
     for name, t in cfg.get("extra_task", {}).items():
         if t.get("final_iter_only") and not final_iter:
@@ -121,6 +147,7 @@ def do_test(cfg, model, max_images: int = -1, final_iter: bool = True) -> Dict[s
         tasks[name] = t["task"]["wrapper"]
     eval_short = cfg.dataloader.get("eval_short_side", 1024)
     eval_max = cfg.dataloader.get("eval_max_size", 2560)
+    across_ranks = bool(cfg.dataloader.get("eval_multihost", True))
 
     # every task's records first, so that a main task that cannot be
     # evaluated fails the call before any evaluation runs
@@ -164,7 +191,7 @@ def do_test(cfg, model, max_images: int = -1, final_iter: bool = True) -> Dict[s
             semantic_on=wrapper_cfg.get("semantic_on", True),
             panoptic_on=wrapper_cfg.get("panoptic_on", True),
             instance_on=instance_on, ignore_label=int(meta.get("ignore_label", 255)),
-            inst_gt_index=inst_gt_index, task=task_name)
+            inst_gt_index=inst_gt_index, task=task_name, across_ranks=across_ranks)
         results[task_name] = r
         logger.info("Task %s: %s", task_name,
                     {k: round(float(v), 2) for k, v in r.items() if isinstance(v, float)})
@@ -219,6 +246,9 @@ def do_train(args, cfg) -> TrainRun:
     criterion_cfg = instantiate(cfg.criterion)
     if "mapper" in cfg.dataloader.train:
         cfg.dataloader.train.mapper.device = str(device)
+    if get_world_size() > 1:  # each rank loads its slice of the stream
+        cfg.dataloader.train.num_hosts = get_world_size()
+        cfg.dataloader.train.host_id = get_rank()
     train_loader = instantiate(cfg.dataloader.train)
     batch0 = next(train_loader)
     is_caption = "word_tokens" in batch0
@@ -249,14 +279,20 @@ def do_train(args, cfg) -> TrainRun:
     eval_results: dict = {}
 
     def run_eval(final_iter: bool, next_iter: int) -> None:
-        results = do_test(cfg, model, max_images=args.max_eval_images, final_iter=final_iter)
+        # every rank evaluates its share, or the main process all of it
+        results = {}
+        if cfg.dataloader.get("eval_multihost", True) or is_main_process():
+            results = do_test(cfg, model, max_images=args.max_eval_images,
+                              final_iter=final_iter)
         flat = {f"{task}/{k}": v for task, r in results.items()
                 for k, v in r.items() if isinstance(v, (int, float))}
-        best_ck.maybe_save(flat, trainable, opt, next_iter)
+        if is_main_process():
+            best_ck.maybe_save(flat, trainable, opt, next_iter)
         if not final_iter:
             storage.put_scalars(**flat)
         eval_results.clear()
         eval_results.update(results)
+        sync_global_devices("eval_done")
 
     accum = int(cfg.train.get("accum_steps", 1))
     if accum > 1:
@@ -271,16 +307,19 @@ def do_train(args, cfg) -> TrainRun:
                                            labels, grad_clip=cfg.optimizer.grad_clip,
                                            accum_steps=accum)
 
-    writers = [CommonMetricPrinter(cfg.train.max_iter),
-               JSONWriter(os.path.join(cfg.train.output_dir, "metrics.json"))]
-    if args.wandb:
-        writers.append(WandbWriter(max_iter=cfg.train.max_iter))
-    hooks = [PeriodicCheckpointer(ck, trainable, opt, cfg.train.checkpointer.period,
-                                  cfg.train.max_iter),
-             EvalHook(cfg.train.eval_period, run_eval, cfg.train.max_iter,
-                      eval_after_train=cfg.train.eval_period > 0),
-             PeriodicWriter(writers, storage, cfg.train.log_period)]
-    if args.profile:
+    # the metrics are the ranks' mean, the same on every rank: rank 0 writes
+    writers, hooks = [], []
+    if is_main_process():
+        writers = [CommonMetricPrinter(cfg.train.max_iter),
+                   JSONWriter(os.path.join(cfg.train.output_dir, "metrics.json"))]
+        if args.wandb:
+            writers.append(WandbWriter(max_iter=cfg.train.max_iter))
+        hooks.append(PeriodicCheckpointer(ck, trainable, opt, cfg.train.checkpointer.period,
+                                          cfg.train.max_iter))
+    hooks += [EvalHook(cfg.train.eval_period, run_eval, cfg.train.max_iter,
+                       eval_after_train=cfg.train.eval_period > 0),
+              PeriodicWriter(writers, storage, cfg.train.log_period)]
+    if args.profile and is_main_process():
         hooks.append(_ProfileWindow(start_iter,
                                     os.path.join(cfg.train.output_dir, "profile")))
 
@@ -293,6 +332,7 @@ def do_train(args, cfg) -> TrainRun:
                       hooks=hooks, log_period=cfg.train.log_period)
     with WriterStack(writers):
         trainer.train(start_iter, cfg.train.max_iter)
+    sync_global_devices("train_end")  # rank 0's last checkpoint is written
     return TrainRun(cfg=cfg, model=model, optimizer=opt, start_iter=start_iter,
                     start_count=start_count, history=trainer.metrics_history,
                     eval_results=eval_results)
@@ -300,8 +340,21 @@ def do_train(args, cfg) -> TrainRun:
 
 def main(argv: Optional[List[str]] = None):
     """Run the CLI on ``argv`` (default ``sys.argv``); returns the
-    ``TrainRun``, or with ``--eval-only`` the results by task."""
+    ``TrainRun``, or with ``--eval-only`` the results by task. With more
+    than one process (``--num-gpus``, ``--num-machines``) the ranks run
+    ``run`` through ``launch`` and this returns None."""
     args = parse_args(argv)
+    if args.num_gpus * args.num_machines == 1:
+        return run(args)
+    # the ranks' device from the config and its overrides, before any starts
+    cfg = load_config(args.config_file)
+    apply_overrides(cfg, [o for o in args.opts if "=" in o])
+    return launch(run, args.num_gpus, args.num_machines, args.machine_rank, args.dist_url,
+                  args=(args,), device=cfg.train.device)
+
+
+def run(args: argparse.Namespace):
+    """``main`` in one process, of a process group or alone."""
     cfg = setup(args)
     if not args.eval_only:
         return do_train(args, cfg)

@@ -1,7 +1,7 @@
 """The deformable-attention CUDA kernels (forward and backward) against
 their plain PyTorch versions, the evaluation statistics on the card
-against the same on the CPU, and nvJPEG's decodes against PIL's.
-Imports no JAX, so it also runs where JAX is not installed:
+against the same on the CPU, nvJPEG's decodes against PIL's, and the
+collectives of training over several ranks on the card. Imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -603,3 +603,42 @@ def test_read_image_dispatches_on_the_signature(cuda, tmp_path):
     png = read_image(tmp_path / "b.jpg", "cuda")
     assert png.device.type == "cuda" and decode_jpeg_cuda.decodes == before + 2
     assert np.array_equal(png.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_collectives_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """The port's collectives (chip_smoke.py's phase 13 (a)) on a one-rank
+    NCCL group on card 0: all-reduce, the grounding loss's gather forward
+    and backward and without gradients, ``all_gather_object``, each equal
+    to the host's values."""
+    import chip_smoke
+    from odise_torch.parallel import initialize_multihost
+
+    initialize_multihost(f"file://{tmp_path}/rendezvous", 1, 0, device="cuda:0")
+    try:
+        result = chip_smoke.collective_checks()
+    finally:
+        torch.distributed.destroy_process_group()
+    print(result)
+    assert result["backend"] == "nccl" and result["world"] == 1
+    assert all(e == 0 for e in result["errors"].values()), result["errors"]
+
+
+@pytest.mark.cuda
+def test_collectives_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """The same on two gloo ranks on card 0 (``launch`` with the card and
+    gloo asked for), with the train step's mean all-reduce and
+    ``gather_pickled`` across the two."""
+    import json
+
+    import chip_smoke
+    from odise_torch.engine.launch import launch
+
+    launch(chip_smoke._collectives_rank, 2, dist_url=f"file://{tmp_path}/rendezvous",
+           args=(str(tmp_path),), backend="gloo", device="cuda:0")
+    for rank in range(2):
+        result = json.loads((tmp_path / f"collectives{rank}.json").read_text())
+        print(result)
+        assert result["backend"] == "gloo" and result["world"] == 2
+        assert result["device"] == "cuda:0"
+        assert all(e == 0 for e in result["errors"].values()), result["errors"]

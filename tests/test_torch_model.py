@@ -212,7 +212,8 @@ def test_port_imports_no_jax():
     one in-memory synthetic record, build TINY CaptionODISE, take one TINY
     CategoryODISE train step (mapper, loader, partition, optimizer,
     Trainer), load every file of the port's config tree and run the train
-    and eval CLI for one step; register a dataset of PNG files, map one
+    and eval CLI for one step; the launcher and the collectives' helpers
+    at world size 1; register a dataset of PNG files, map one
     record and evaluate one image from its files; and a JPEG read on the
     CPU fails naming PIL. chip_smoke.py must not import them either."""
     script = textwrap.dedent("""
@@ -224,6 +225,10 @@ def test_port_imports_no_jax():
         import odise_torch
         for m in pkgutil.walk_packages(odise_torch.__path__, "odise_torch."):
             importlib.import_module(m.name)
+        from odise_torch.engine.launch import launch
+        from odise_torch.parallel import gather_pickled, get_world_size
+        assert launch(gather_pickled, 1, args=("x",), device="cpu") == ["x"]
+        assert get_world_size() == 1
         from odise_torch.model_zoo.factory import build_category_odise
         from odise_torch.models.clip.tokenizer import tokenize
         model = build_category_odise("tiny", device="cpu")
