@@ -142,6 +142,28 @@ Phases, each fatal on failure:
      3 steps at a total batch of 4, the final eval shared 2 + 1 over 3
      images, the ranks' parameters bitwise equal, only rank 0 writing,
      the merged metrics equal to a one-process ``--eval-only``.
+ 14. Stable Diffusion's text-to-image sampling and the rest of the JAX
+     package's tools (``ldm_phase``): (a) TINY ``LatentDiffusion`` on the
+     card against the CPU before the final clip (1e-3 of the largest
+     magnitude); (b) FULL SD v1.3 (UNet 320, VAE 128, text 12 x 768) from
+     weights in the reference's layout through the port's converter,
+     float32 with TF32 off, 2 DDIM steps with guidance 7.5, against the
+     JAX package's run on the same weights (``tests/data/
+     torch_ldm_reference.npz``): both embeddings and the first step's eps
+     within 1e-4 of JAX's largest magnitude, every later eps, latent and
+     the image before the clip within 1e-3; (c) the same weights in bf16
+     at the JAX module's defaults (50 DDIM steps, guidance 7.5, one prompt,
+     512 px): first and warm image seconds, ms a DDIM step, the VAE
+     decode's ms, peak memory, the image finite and in [0, 1]; (d)
+     ``python -m odise_torch.analyze_model`` at FULL, 28,591,297 trainable;
+     (e) the port's dataset scripts on a raw ADE20K layout (two demo JPEGs,
+     drawn semantic and instance PNGs) and phase 12's COCO layout, their
+     outputs read back through ``ade20k_panoptic_val`` and
+     ``coco_2017_val_panoptic_with_sem_seg`` equal to what was drawn, the
+     two prepared ADE20K images evaluated by the FULL CategoryODISE in bf16
+     over ADE's 150 labels (6 launches an image, finite PQ and mIoU), and
+     the semantic-PQ tool on the prepared COCO maps against themselves (PQ
+     100). No PIL anywhere.
 Phase 1 also builds the backward kernel and prints its launch plan, shared
 memory and resident warps; phase 2 also holds it against the plain backward
 run in float64, at the main path's levels on random, out-of-range,
@@ -2764,6 +2786,233 @@ def _full_steps_rank(out_dir):
         torch.cuda.empty_cache()
 
 
+# phase 14: (c)'s sampling, the JAX module's defaults; (e)'s ADE20K images
+LDM_STEPS, LDM_WARM = 50, 3
+PREPARE_STEMS = {"ADE_val_00000001": "ade", "ADE_val_00000002": "coco"}  # demo JPEGs
+
+
+def with_dataset_root(root):
+    """Register the ADE20K and COCO names under ``root`` (``None``: the
+    default root again), dropping what they were."""
+    from odise_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from odise_torch.data.datasets.register_ade20k import register_ade20k
+    from odise_torch.data.datasets.register_coco import register_coco_panoptic
+
+    for name in DatasetCatalog.list():
+        if name.startswith(("ade20k_", "coco_2017_")):
+            DatasetCatalog.remove(name)
+            MetadataCatalog.remove(name)
+    register_ade20k(root)
+    register_coco_panoptic(root)
+
+
+def ldm_phase():
+    """Phase 14: Stable Diffusion's text-to-image sampling and the rest of
+    the JAX package's tools. (a) TINY ``LatentDiffusion`` (widths 32, 32,
+    64 x 2; 3 DDIM steps, 8x8 latents) on the card against the CPU on the
+    same weights and starting latent, before the clip; (b) FULL SD v1.3
+    (reference-layout weights from ``tests/test_torch_ldm.py`` through the
+    port's converter), float32 with TF32 off, 2 DDIM steps, guidance 7.5,
+    against the JAX package's run in ``tests/data/torch_ldm_reference.npz``:
+    both embeddings, each step's guided eps and latent, the image before
+    the clip; (c) the same weights in bf16 at the JAX module's defaults (50
+    DDIM steps, guidance 7.5, one prompt at 512 px): first and warm image
+    seconds, ms a DDIM step, the VAE decode's ms, peak memory; (d)
+    ``analyze_model`` at FULL; (e) the port's dataset scripts on a raw
+    ADE20K layout (two demo JPEGs with drawn semantic and instance PNGs)
+    and phase 12's COCO layout, read back through the registrations,
+    two prepared ADE20K images evaluated by the FULL CategoryODISE in bf16
+    over ADE's 150 labels, and the semantic-PQ tool on the prepared COCO
+    maps against themselves."""
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from odise_torch import analyze_model, evaluate_pq_for_semantic_segmentation as sem_pq
+    from odise_torch.data.build import get_openseg_labels
+    from odise_torch.data.catalog import DatasetCatalog
+    from odise_torch.data.datasets.register_ade20k import ade150_categories
+    from odise_torch.data.image_io import read_label, write_png
+    from odise_torch.evaluation.run import evaluate_open_vocab
+    from odise_torch.model_zoo.factory import build_category_odise
+    from odise_torch.models.clip.tokenizer import tokenize
+    from odise_torch.models.sd.ldm import build_latent_diffusion
+    from odise_torch.models.wrapper import OpenPanopticInference, build_open_vocabulary
+    from odise_torch.prepare import (prepare_ade20k_ins_seg, prepare_ade20k_pan_seg,
+                                     prepare_coco_semantic_annos_from_panoptic_annos as coco_sem)
+    from tests.test_torch_ldm import (PROMPT, build_port, ldm_inputs, ldm_parity,
+                                      load_reference)
+    from tests.test_torch_prepare import ade_record_matches, write_ade20k_raw
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 parity
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    faults = []
+
+    # (a) TINY on the card against the CPU, before the clip
+    state, shas = ldm_inputs("tiny")
+    ref = load_reference("tiny", shas)
+    cpu = build_port("tiny", dict(state), "cpu")
+    card = build_port("tiny", state, "cuda")
+    tok, noise = torch.from_numpy(ref["tokens"]), torch.from_numpy(ref["noise"])
+    img_cpu = cpu.sample(tok, noise=noise)
+    img_card = card.sample(tok, noise=noise).cpu()
+    err_a = float((img_card - img_cpu).abs().max() / img_cpu.abs().max())
+    log(f"(a) TINY LatentDiffusion, card vs CPU, image before the clip {tuple(img_card.shape)}: "
+        f"max err {err_a:.3e} of the largest |x| (tolerance 1e-3)")
+    faults.append((not err_a <= 1e-3, f"TINY card vs CPU {err_a:.3e}"))
+    del cpu, card, state
+
+    # (b) FULL float32 against the JAX package's run on the same weights
+    t0 = time.perf_counter()
+    made = ldm_inputs("full")
+    log(f"(b) SD v1.3 in the reference's layout: "
+        f"{sum(v.size for v in made[0].values()) / 1e9:.3f} B values, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errors, captures, model = ldm_parity("full", "cuda", made)
+    log(f"(b) FULL float32 parity with the JAX package, 2 DDIM steps, guidance 7.5 "
+        f"({time.perf_counter() - t0:.1f} s with the install):")
+    for key, (err, tol) in errors.items():
+        log(f"  {key:9s} max err {err:.3e} of JAX's largest |x| (tolerance {tol:g})"
+            f"{'' if err <= tol else '  MISSED'}")
+    steps = sorted(int(k[4:]) for k in errors if k.startswith("eps_"))
+    log("  growth step to step: eps " + ", ".join(f"{errors[f'eps_{k}'][0]:.3e}" for k in steps)
+        + "; latent " + ", ".join(f"{errors[f'latent_{k}'][0]:.3e}" for k in steps))
+    faults.append((any(not e <= t for e, t in errors.values()),
+                   f"FULL parity missed {[k for k, (e, t) in errors.items() if not e <= t]}"))
+    del captures, made
+
+    # (c) bf16 at the JAX module's defaults: 50 DDIM steps, guidance 7.5, 512 px
+    fast = build_latent_diffusion("full", dtype=torch.bfloat16)
+    fast.load_state_dict(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(tokenize([PROMPT])).long().cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    seconds, image = [], None
+    for _ in range(1 + LDM_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image = fast.forward_test(tokens, gen)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    latent = fast.initial_noise(1, gen, "cuda")
+    decode_ms = []
+    with torch.no_grad():
+        for _ in range(LDM_WARM):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fast.decode_from_latent(latent.to(torch.bfloat16))
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+    warm_s, decode = statistics.median(seconds[1:]), statistics.median(decode_ms)
+    step_ms = (warm_s * 1e3 - decode) / fast.diffusion.num_timesteps
+    ok = (tuple(image.shape) == (1, 3, 512, 512) and bool(torch.isfinite(image).all())
+          and float(image.min()) >= 0 and float(image.max()) <= 1)
+    log(f"(c) bf16, {fast.diffusion.num_timesteps} DDIM steps, guidance "
+        f"{fast.guidance_scale}, 512 px: first image {seconds[0]:.3f} s, warm "
+        f"{warm_s:.3f} s (median of {LDM_WARM}: {', '.join(f'{x:.3f}' for x in seconds[1:])}); "
+        f"{step_ms:.2f} ms a DDIM step (UNet at batch 2 and the step's arithmetic, the "
+        f"prompt's two embeddings spread over the steps), VAE decode {decode:.2f} ms; peak "
+        f"{peak_gib:.2f} GiB; image {tuple(image.shape)} {str(image.dtype)[6:]}, in "
+        f"[{float(image.min()):.3f}, {float(image.max()):.3f}], mean {float(image.float().mean()):.4f}, "
+        f"{float(((image == 0) | (image == 1)).float().mean()):.4f} of values clipped")
+    faults.append((not ok, "the bf16 image is not (1, 3, 512, 512), finite, in [0, 1]"))
+    del fast, image, latent
+    torch.cuda.empty_cache()
+
+    # (d) the parameter tables at FULL
+    t0 = time.perf_counter()
+    counts = analyze_model.main(["--scale", "full", "--max-depth", "1"])
+    log(f"(d) analyze_model at FULL: {counts['total']:,} parameters, "
+        f"{counts['trainable']:,} trainable ({time.perf_counter() - t0:.1f} s)")
+    faults.append((counts["trainable"] != 28_591_297, f"{counts['trainable']:,} trainable"))
+    torch.cuda.empty_cache()
+
+    # (e) the port's dataset scripts, then evaluation from what they wrote
+    root = os.path.join("output", "chip_smoke_prepare")
+    shutil.rmtree(root, ignore_errors=True)
+    demo_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo", "examples")
+    drawn = write_ade20k_raw(root, list(PREPARE_STEMS), h=480, w=640, images={
+        stem: os.path.join(demo_dir, f"{name}.jpg") for stem, name in PREPARE_STEMS.items()})
+    ade = os.path.join(root, "ADEChallengeData2016")
+    os.makedirs(os.path.join(ade, "annotations_detectron2", "validation"))
+    for stem, (sem, _) in drawn.items():  # datasets/prepare_ade20k_sem_seg.py's output
+        write_png(os.path.join(ade, "annotations_detectron2", "validation", stem + ".png"),
+                  np.where(sem == 0, 255, sem.astype(np.int64) - 1).astype(np.uint8))
+    written = write_coco_dataset(root)
+    for split in ("train", "val"):
+        shutil.rmtree(os.path.join(root, "coco", f"panoptic_semseg_{split}2017"))
+    t0 = time.perf_counter()
+    prepare_ade20k_pan_seg.main(root)
+    prepare_ade20k_ins_seg.main(root)
+    coco_sem.main(root)
+    prepare_s = time.perf_counter() - t0
+    with_dataset_root(root)
+    try:
+        recs = DatasetCatalog.get("ade20k_panoptic_val")
+        bad = [rec["image_id"] for rec in recs
+               if not ade_record_matches(rec, *drawn[rec["image_id"]])]
+        coco_bad = [key for key in written if key[0] == "val"]
+        for rec in DatasetCatalog.get("coco_2017_val_panoptic_with_sem_seg"):
+            if np.array_equal(read_label(rec["sem_seg_file_name"]),
+                              written[("val", rec["image_id"])]["sem"]):
+                coco_bad.remove(("val", rec["image_id"]))
+        with open(os.path.join(ade, "ade20k_instance_val.json")) as f:
+            n_inst = len(json.load(f)["annotations"])
+        log(f"(e) prepare_ade20k_pan_seg, prepare_ade20k_ins_seg ({n_inst} instances) and "
+            f"prepare_coco_semantic_annos_from_panoptic_annos in {prepare_s:.2f} s; read back "
+            f"through ade20k_panoptic_val ({len(recs)} records) and "
+            f"coco_2017_val_panoptic_with_sem_seg: {len(bad) + len(coco_bad)} differ from "
+            f"what was drawn")
+        faults += [(bad or coco_bad or len(recs) != len(drawn),
+                    f"prepared files differ from what was drawn: {bad} {coco_bad}"),
+                   (n_inst != 4 * len(drawn), f"{n_inst} ADE instances")]
+
+        labels = tuple(tuple(l) for l in get_openseg_labels("ade20k_150", True))
+        thing = np.asarray([bool(c["isthing"]) for c in ade150_categories()])
+        eval_model = build_category_odise("full", train_labels=labels, dtype=torch.bfloat16)
+        pattern_fill_(eval_model)
+        vocab = build_open_vocabulary(eval_model, labels, thing_mask=thing)
+        zero_launch_counts()
+        # ADE's instance json names its masks by PNG, not in a form the
+        # instance evaluator reads: panoptic and semantic only
+        metrics = evaluate_open_vocab(OpenPanopticInference(eval_model, vocab), recs,
+                                      labels=labels, thing_mask=thing, instance_on=False,
+                                      task="ade20k_prepared")
+        eval_launches = launch_counts()
+        log(f"(e) FULL CategoryODISE, bf16, over ADE's 150 labels on the {len(recs)} prepared "
+            f"images: PQ {metrics['PQ']}, mIoU {metrics['mIoU']}, "
+            f"{metrics['s_per_img'] * 1e3:.1f} ms an image, launches {eval_launches}")
+        faults += [(eval_launches != (6 * len(recs), 0), f"launches {eval_launches}"),
+                   (not all(np.isfinite(metrics[k]) for k in ("PQ", "mIoU")),
+                    "non-finite PQ or mIoU")]
+        del eval_model
+        semseg = os.path.join(root, "coco", "panoptic_semseg_val2017")
+        pq = sem_pq.main(["--pred-dir", semseg, "--gt-dir", semseg, "--num-classes", "133"])
+        log(f"(e) evaluate_pq_for_semantic_segmentation, prepared COCO maps against "
+            f"themselves: PQ {pq['PQ']}")
+        faults.append((pq["PQ"] != 100.0, f"self PQ {pq['PQ']}"))
+    finally:
+        with_dataset_root(None)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    seconds_phase = time.perf_counter() - t_phase
+    log(f"phase 14: {seconds_phase:.1f} s")
+    for is_bad, what in faults:
+        if is_bad:
+            raise AssertionError(f"ldm phase: {what}")
+    return dict(seconds=seconds_phase, tiny_err=err_a,
+                parity={k: e for k, (e, _) in errors.items()}, first_s=seconds[0],
+                warm_s=warm_s, step_ms=step_ms, decode_ms=decode, peak_gib=peak_gib,
+                counts=counts, launches=eval_launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA card: torch.cuda.is_available() is false",
@@ -2978,6 +3227,11 @@ def main():
     log(f"phase 13: {par['seconds']:.1f} s")
     phase_done(13)
 
+    # 14. SD's text-to-image sampling, analyze_model, the dataset scripts
+    torch.cuda.empty_cache()
+    ldm = ldm_phase()
+    phase_done(14)
+
     log(card_line())
     bwd_plan = backward_plan(2, sum(h * w for h, w in SHAPES), HEADS, HEAD_DIM, torch.bfloat16,
                              POINTS)
@@ -3000,6 +3254,7 @@ def main():
                                        "demo": [r["launches"] for r in ref_w["demo"]]},
         "reference_weights_512px_f32": {k: ref_w["kernel"][k] for k in (
             "max_abs_err", "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by")},
+        "launches_prepared_ade20k_eval": ldm["launches"][0],
         "in_place_train_ms": train["fwd_in_place_ms"],
         "bucket_shapes_checked": [SHAPES, WIDE, TALL],
         "largest_bucket": largest}, {
@@ -3023,6 +3278,7 @@ def main():
         "train_peak_gib": train["peak_gib"],
         "launches_train_net": {k: v[1] for k, v in cli["launches"].items()},
         "launches_dataset_train_net": data["launches"][1],
+        "launches_prepared_ade20k_eval": ldm["launches"][1],
         "launches_parallel": {"step_per_rank": {k: [ln[1] for ln in v["launches"]]
                                                 for k, v in par["steps"].items()},
                               "train_net_per_rank": [c["launches"][1] for c in par["cli"]]}}]}),

@@ -18,7 +18,9 @@ name:
 Each reader gives what PIL gives: ``read_label`` is ``np.asarray(Image.open(p))``
 (palette indices for a palette PNG, uint16 for a 16-bit file);
 ``read_rgb_png`` and ``read_image`` are ``Image.open(p).convert("RGB")``.
-``write_png`` writes what the synthetic datasets and ``chip_smoke.py`` need.
+``write_png`` writes what the synthetic datasets, the dataset scripts
+(``odise_torch/prepare``) and ``chip_smoke.py`` need; ``write_tiff`` the
+16-bit gray label files.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 __all__ = ["decode_jpeg_cuda", "decode_png", "decode_tiff", "read_image", "read_label",
-           "read_rgb_png", "write_png"]
+           "read_rgb_png", "write_png", "write_tiff"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -305,6 +307,39 @@ def decode_tiff(data: bytes) -> Decoded:
     px = np.frombuffer(buf, e + ("u1" if depth == 8 else "u2"))
     px = px.astype(np.uint8 if depth == 8 else np.uint16)
     return Decoded(px.reshape((h, w) if spp == 1 else (h, w, 3)), mode)
+
+
+def write_tiff(path, array: np.ndarray) -> None:
+    """Write an [H, W] uint16 array as a baseline TIFF: little-endian,
+    uncompressed, one strip, 16-bit gray (the label files of Pascal Context
+    459 and ADE20K-847), which ``decode_tiff`` and PIL read back."""
+    array = np.asarray(array)
+    if array.ndim != 2 or array.dtype != np.uint16:
+        raise ValueError(f"write_tiff takes [H, W] uint16, not {array.shape} {array.dtype}")
+    h, w = array.shape
+    pixels = np.ascontiguousarray(array.astype("<u2")).tobytes()
+    # tag, type (3 SHORT, 4 LONG, 5 RATIONAL), value; sorted by tag
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 16), (259, 3, 1), (262, 3, 1),
+               (273, 4, None), (277, 3, 1), (278, 4, h), (279, 4, len(pixels)),
+               (282, 5, None), (283, 5, None), (284, 3, 1), (296, 3, 2)]
+    ifd_size = 2 + 12 * len(entries) + 4
+    rational_at = 8 + ifd_size           # two 72/1 resolutions, 8 bytes each
+    pixels_at = rational_at + 16
+    ifd = [struct.pack("<H", len(entries))]
+    for tag, kind, value in entries:
+        if tag == 273:
+            value = pixels_at
+        if kind == 5:
+            ifd.append(struct.pack("<HHII", tag, kind, 1,
+                                   rational_at + (0 if tag == 282 else 8)))
+        elif kind == 3:
+            ifd.append(struct.pack("<HHIHH", tag, kind, 1, value, 0))
+        else:
+            ifd.append(struct.pack("<HHII", tag, kind, 1, value))
+    ifd.append(struct.pack("<I", 0))
+    with open(path, "wb") as f:
+        f.write(b"II*\x00" + struct.pack("<I", 8) + b"".join(ifd)
+                + struct.pack("<IIII", 72, 1, 72, 1) + pixels)
 
 
 # ---------------------------------------------------------------- dispatch

@@ -13,11 +13,12 @@ Layout rules:
   * Group/LayerNorm weight/bias -> scale/bias
   * nn.MultiheadAttention in_proj_weight [3C,C] -> in_proj kernel [C,3C]
 
-The installers (``install_sd_weights``, ``install_clip_weights``,
-``install_odise_trainable``) fill a port model in place, raise on a
-converted leaf that names no tensor or does not fit its shape, and raise
-if a tower they install is left with a tensor unfilled; ``sd_install``,
-``clip_install`` and ``odise_install`` give what they install.
+The installers (``install_sd_weights``, ``install_ldm_weights``,
+``install_clip_weights``, ``install_odise_trainable``) fill a port model in
+place, raise on a converted leaf that names no tensor or does not fit its
+shape, and raise if a tower they install is left with a tensor unfilled;
+``sd_install``, ``ldm_install``, ``clip_install`` and ``odise_install``
+give what they install.
 """
 
 from __future__ import annotations
@@ -469,6 +470,22 @@ class Install(NamedTuple):
     may_leave: Tuple[str, ...] = ()
 
 
+def _sd_tree(sd_state: Mapping, text_layers: int, text_name: str):
+    """SD's towers as one scope tree (``vae``, ``unet`` and, where the
+    state holds it, the text encoder as ``text_name``), the names of the
+    towers it fills and the tensors it may leave, relative to the scope."""
+    tree = {"vae": convert_sd_vae(sd_state), "unet": convert_sd_unet(sd_state)}
+    towers, may_leave = ["vae", "unet"], []
+    text = _strip(sd_state, "cond_stage_model.transformer.")
+    if text:
+        if HF_TEXT_TOKEN in text:
+            text = hf_clip_text_to_openai(text, text_layers)
+            may_leave.append(f"{text_name}.text_projection")
+        tree[text_name] = convert_clip_text(text, layers=text_layers)
+        towers.append(text_name)
+    return tree, towers, may_leave
+
+
 def sd_install(model: nn.Module, sd_state: Mapping) -> Install:
     """SD's VAE, UNet and, where the state holds it, text encoder, under
     ``backbone.feature_extractor.ldm_extractor``.
@@ -481,18 +498,21 @@ def sd_install(model: nn.Module, sd_state: Mapping) -> Install:
     applies.
     """
     scope = "backbone.feature_extractor.ldm_extractor"
-    tree = {"vae": convert_sd_vae(sd_state), "unet": convert_sd_unet(sd_state)}
-    towers, may_leave = [f"{scope}.vae", f"{scope}.unet"], ()
-    text = _strip(sd_state, "cond_stage_model.transformer.")
-    if text:
-        layers = _layers(model.backbone.feature_extractor.ldm_extractor.sd_text.transformer)
-        if HF_TEXT_TOKEN in text:
-            text = hf_clip_text_to_openai(text, layers)
-            may_leave = (f"{scope}.sd_text.text_projection",)
-        tree["sd_text"] = convert_clip_text(text, layers=layers)
-        towers.append(f"{scope}.sd_text")
+    tree, towers, may_leave = _sd_tree(
+        sd_state, _layers(model.backbone.feature_extractor.ldm_extractor.sd_text.transformer),
+        "sd_text")
     return Install({"backbone": {"feature_extractor": {"ldm_extractor": tree}}},
-                   tuple(towers), may_leave)
+                   tuple(f"{scope}.{t}" for t in towers),
+                   tuple(f"{scope}.{t}" for t in may_leave))
+
+
+def ldm_install(model: nn.Module, sd_state: Mapping) -> Install:
+    """SD's three towers into ``models.sd.LatentDiffusion`` (``vae``,
+    ``unet``, ``text_encoder``), each of which must be filled whole; the
+    text encoder in either layout, as ``sd_install`` reads it."""
+    tree, _, may_leave = _sd_tree(sd_state, _layers(model.text_encoder.transformer),
+                                  "text_encoder")
+    return Install(tree, ("vae", "unet", "text_encoder"), tuple(may_leave))
 
 
 def clip_install(model: nn.Module, clip_state: Mapping,
@@ -561,6 +581,12 @@ def install(model: nn.Module, what: Install) -> None:
 def install_sd_weights(model: nn.Module, sd_state: Mapping) -> None:
     """Install SD weights into ``model`` in place (``sd_install``)."""
     install(model, sd_install(model, sd_state))
+
+
+def install_ldm_weights(model: nn.Module, sd_state: Mapping) -> None:
+    """Install SD v1's weights into a ``LatentDiffusion`` in place
+    (``ldm_install``)."""
+    install(model, ldm_install(model, sd_state))
 
 
 def install_clip_weights(model: nn.Module, clip_state: Mapping,

@@ -23,7 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ...diffusion.gaussian import GaussianDiffusion, get_named_beta_schedule
+from ...diffusion import GaussianDiffusion, get_named_beta_schedule
 from ..clip.adapter import clip_preprocess
 from ..clip.model import TextTransformer, VisionTransformer
 from ..clip.tokenizer import tokenize

@@ -1,7 +1,8 @@
 """The deformable-attention CUDA kernels (forward and backward) against
 their plain PyTorch versions, the evaluation statistics on the card
-against the same on the CPU, nvJPEG's decodes against PIL's, and the
-collectives of training over several ranks on the card. Imports no JAX, so it also runs where JAX is not installed:
+against the same on the CPU, nvJPEG's decodes against PIL's, the
+collectives of training over several ranks on the card, and TINY Stable
+Diffusion sampling on the card against the CPU. Imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -556,6 +557,31 @@ def test_full_parity_with_jax_through_the_converters(cuda):
     missed = {k: v for k, v in errors.items() if not v[0] <= v[2]}
     assert not missed, missed
     assert agreement >= 0.99
+
+
+@pytest.mark.cuda
+def test_tiny_latent_diffusion_card_equals_cpu(cuda):
+    """TINY ``LatentDiffusion`` (widths 32, 32, 64 x 2; 3 DDIM steps, 8x8
+    latents, guidance 7.5) with the reference-layout weights of
+    ``tests/test_torch_ldm.py``, in float32 with TF32 off, on the card
+    against the CPU from the same tokens and starting latent: the image
+    before the clip within 1e-3 of the CPU's largest magnitude (each step
+    multiplies the UNet's differences by the guidance), and
+    ``forward_test`` that image clipped to [0, 1]."""
+    from .test_torch_ldm import build_port, ldm_inputs, load_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state, shas = ldm_inputs("tiny")
+    ref = load_reference("tiny", shas)
+    cpu = build_port("tiny", dict(state), "cpu")
+    card = build_port("tiny", state, "cuda")
+    tok, noise = torch.from_numpy(ref["tokens"]), torch.from_numpy(ref["noise"])
+    want = cpu.sample(tok, noise=noise)
+    got = card.sample(tok, noise=noise)
+    assert got.device.type == "cuda" and got.shape == (1, 3, 64, 64)
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-3
+    img = card.forward_test(tok, noise=noise)
+    assert torch.equal(img, ((got + 1) / 2).clamp(0, 1))
 
 
 JPEG_CASES = ["baseline_420_641x479", "baseline_444", "grayscale", "progressive",
