@@ -161,7 +161,9 @@ Phases, each fatal on failure:
      outputs read back through ``ade20k_panoptic_val`` and
      ``coco_2017_val_panoptic_with_sem_seg`` equal to what was drawn, the
      two prepared ADE20K images evaluated by the FULL CategoryODISE in bf16
-     over ADE's 150 labels (6 launches an image, finite PQ and mIoU), and
+     over ADE's 150 labels with instances on, their ground truth read from
+     the prepared instance json (6 launches an image, finite PQ, mIoU and
+     AP), and
      the semantic-PQ tool on the prepared COCO maps against themselves (PQ
      100). No PIL anywhere.
 Phase 1 also builds the backward kernel and prints its launch plan, shared
@@ -2358,12 +2360,14 @@ def nccl_shared_card_probe(out_dir, timeout_s=90):
     return out
 
 
-def full_step(kind, rows, reference=None):
+def full_step(kind, rows, reference=None, mesh=None):
     """One step of phase 8's recipe in float32 (TF32 off) on rows ``rows``
     of phase 8's first batch (its loader and generator seeds): FULL
     CategoryODISE or CaptionODISE (grounding over the ranks, "diff")
-    without the CLIP head, pattern weights. In a process group every rank
-    draws the batch of 2's points and keeps its own. Returns the metrics,
+    without the CLIP head, pattern weights; with ``mesh``, the frozen
+    towers sharded over its model axis (phase 15). In a process group every
+    data rank draws the batch of 2's points and keeps its own. Returns the
+    frozen towers' bytes held and whole, the metrics,
     the step's ms, the kernels' launches, peak memory, the all-reduce's ms
     and digests of the gradients and updated parameters; without
     ``reference`` the gradients themselves, digests of the criterion's
@@ -2395,8 +2399,15 @@ def full_step(kind, rows, reference=None):
     caption = kind == "caption"
     seed = PARALLEL_STEP_SEEDS[kind]
     labels = None if caption else vocabulary(80, 53, "category")[0]
-    model, trainable, _ = build_for_training(
-        build_caption_odise if caption else build_category_odise, labels, torch.float32)
+    # the frozen dict is dropped: it would keep the towers whole under a mesh
+    model, trainable = build_for_training(
+        build_caption_odise if caption else build_category_odise, labels, torch.float32)[:2]
+    whole = frozen_bytes(model)
+    if mesh is not None:
+        from odise_torch.parallel import shard_params
+
+        shard_params(model, mesh)
+        torch.cuda.empty_cache()
     batch = {k: v[rows] for k, v in next(train_loader(640, caption, seed)).items()}
     opt = make_optimizer(trainable, lr=1e-4, weight_decay=0.05)
     if caption:
@@ -2477,6 +2488,7 @@ def full_step(kind, rows, reference=None):
     ms = (time.perf_counter() - t0) * 1e3
     grads = {n: p.grad for n, p in trainable.items()}
     out = {"metrics": {k: float(v) for k, v in metrics.items()}, "ms": ms,
+           "frozen_bytes": (frozen_bytes(model), whole),
            "launches": launch_counts(), "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "reduce_ms": reduce.ms, "images": len(rows),
            "grad_digest": _digest(grads), "param_digest": _digest(trainable)}
@@ -2832,8 +2844,9 @@ def ldm_phase():
 
     from odise_torch import analyze_model, evaluate_pq_for_semantic_segmentation as sem_pq
     from odise_torch.data.build import get_openseg_labels
-    from odise_torch.data.catalog import DatasetCatalog
-    from odise_torch.data.datasets.register_ade20k import ade150_categories
+    from odise_torch.data.catalog import DatasetCatalog, MetadataCatalog
+    from odise_torch.data.datasets.register_ade20k import (ade150_categories,
+                                                           load_ade_instance_gt_index)
     from odise_torch.data.image_io import read_label, write_png
     from odise_torch.evaluation.run import evaluate_open_vocab
     from odise_torch.model_zoo.factory import build_category_odise
@@ -2979,19 +2992,24 @@ def ldm_phase():
         eval_model = build_category_odise("full", train_labels=labels, dtype=torch.bfloat16)
         pattern_fill_(eval_model)
         vocab = build_open_vocabulary(eval_model, labels, thing_mask=thing)
+        # the instance gt as train_net reads it for this task: the prepared
+        # json's masks by PNG and key, its images by file name (C34)
+        meta = MetadataCatalog.get("ade20k_panoptic_val")
+        index = load_ade_instance_gt_index(meta.json_file,
+                                           meta.thing_dataset_id_to_contiguous_id)
         zero_launch_counts()
-        # ADE's instance json names its masks by PNG, not in a form the
-        # instance evaluator reads: panoptic and semantic only
         metrics = evaluate_open_vocab(OpenPanopticInference(eval_model, vocab), recs,
-                                      labels=labels, thing_mask=thing, instance_on=False,
+                                      labels=labels, thing_mask=thing, inst_gt_index=index,
                                       task="ade20k_prepared")
         eval_launches = launch_counts()
         log(f"(e) FULL CategoryODISE, bf16, over ADE's 150 labels on the {len(recs)} prepared "
-            f"images: PQ {metrics['PQ']}, mIoU {metrics['mIoU']}, "
+            f"images, instances on ({sum(len(v) for v in index.values())} from the prepared "
+            f"json): PQ {metrics['PQ']}, mIoU {metrics['mIoU']}, AP {metrics['AP']}, "
             f"{metrics['s_per_img'] * 1e3:.1f} ms an image, launches {eval_launches}")
         faults += [(eval_launches != (6 * len(recs), 0), f"launches {eval_launches}"),
-                   (not all(np.isfinite(metrics[k]) for k in ("PQ", "mIoU")),
-                    "non-finite PQ or mIoU")]
+                   (sum(len(v) for v in index.values()) != n_inst, "instance gt index"),
+                   (not all(np.isfinite(metrics[k]) for k in ("PQ", "mIoU", "AP")),
+                    "non-finite PQ, mIoU or AP")]
         del eval_model
         semseg = os.path.join(root, "coco", "panoptic_semseg_val2017")
         pq = sem_pq.main(["--pred-dir", semseg, "--gt-dir", semseg, "--num-classes", "133"])
@@ -3011,6 +3029,231 @@ def ldm_phase():
                 parity={k: e for k, (e, _) in errors.items()}, first_s=seconds[0],
                 warm_s=warm_s, step_ms=step_ms, decode_ms=decode, peak_gib=peak_gib,
                 counts=counts, launches=eval_launches)
+
+
+# phase 15: the mesh's model axis over two ranks sharing the card over gloo
+MESH_MODEL = 2
+
+
+def frozen_bytes(model):
+    """Bytes of the frozen towers' parameters this process holds."""
+    from odise_torch.parallel import is_frozen_path
+
+    return sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+               if is_frozen_path(tuple(n.split("."))))
+
+
+class TimedGathers:
+    """Inside ``with``, each all-gather of a sharded weight over the model
+    axis timed from the host with a synchronize on either side, into
+    ``ms``."""
+
+    def __enter__(self):
+        from odise_torch.parallel import mesh
+
+        self.ms, self.plain = [], mesh._GatherShards.forward
+
+        def timed(ctx, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.plain(ctx, *args)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        mesh._GatherShards.forward = staticmethod(timed)
+        return self
+
+    def __exit__(self, *exc):
+        from odise_torch.parallel import mesh
+
+        mesh._GatherShards.forward = staticmethod(self.plain)
+
+
+def _mesh_rank(out_dir):
+    """Phase 15 on this rank of a (data 1, model 2) mesh: (a) phase 3's
+    FULL bf16 model, its towers sharded, serving the 1024-px request twice
+    (the first, then a warm one), the forward kernel held to float64 on the
+    inputs the request gave the first encoder layer; (b) phase 8's float32
+    step at batch 2 against the one process's file (``full_step``), both
+    kernels held to float64 on the inputs the step gave that layer."""
+    import os
+
+    from odise_torch.model_zoo.factory import build_category_odise
+    from odise_torch.parallel import create_mesh, shard_params
+
+    _rank_tf32_off()
+    mesh = create_mesh(data=1, model=MESH_MODEL)
+    rank = mesh.rank
+    out = {"device": str(torch.cuda.current_device())}
+
+    # (a) the request
+    train_labels, thing133 = vocabulary(80, 53, "category")
+    model = build_category_odise("full", train_labels=train_labels, device="cuda",
+                                 dtype=torch.bfloat16)
+    pattern_fill_(model)
+    whole = frozen_bytes(model)
+    plan = shard_params(model, mesh)
+    torch.cuda.empty_cache()
+    out["sharded_leaves"] = len(plan)
+    out["request_frozen_bytes"] = (frozen_bytes(model), whole)
+    image = pattern_image(1024, "cuda")
+    layer0 = Layer0Inputs(model)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    records, gathers = [], []
+    with torch.inference_mode():
+        for _ in range(2):
+            with TimedGathers() as timer:
+                records += serve(model, [(train_labels, thing133)], image, train_labels)
+            gathers.append((len(timer.ms), sum(timer.ms)))
+    out["request_launches"] = launch_counts()
+    out["request_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["request_ms"] = [r["ms"] for r in records]
+    out["logit_sum"] = [r["logit_sum"] for r in records]
+    out["gathers"] = gathers
+    layer0.hook.remove()
+    src, pos, ref_points, levels = layer0.first[tuple(SHAPES)]
+    with torch.inference_mode():
+        v, loc, attn = layer0.layer.self_attn.sampling_inputs(src + pos, ref_points, src,
+                                                              levels)
+        out["fwd_err"] = check_kernel(v, loc, attn, f"rank {rank}, sharded request's inputs, "
+                                      "bfloat16")
+    torch.save({"mask_cls": records[0]["mask_cls"].cpu(),
+                "mask_pred": records[0]["mask_pred"].cpu()},
+               os.path.join(out_dir, f"request{rank}.pt"))
+    del model, layer0, records, src, pos, ref_points, v, loc, attn
+    torch.cuda.empty_cache()
+
+    # (b) the train step
+    first = FirstTrainInputs()
+    try:
+        with TimedGathers() as timer:
+            out["step"] = full_step("category", [0, 1],
+                                    os.path.join(out_dir, "category_one.pt"), mesh)
+    finally:
+        first.hook.remove()
+    out["step_gathers"] = (len(timer.ms), sum(timer.ms))
+    v, loc, attn, levels = first.inputs
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out["step_fwd_err"] = check_kernel(v, loc, attn, f"rank {rank}, sharded step's inputs, "
+                                       "float32", levels)
+    out["bwd_err"] = check_backward(v, loc, attn, f"rank {rank}, sharded step's inputs, "
+                                    "float32", levels, gen)[0]
+    with open(os.path.join(out_dir, f"mesh{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_phase():
+    """Phase 15: the mesh's ``model`` axis (``odise_torch/parallel/
+    mesh.py``) at FULL on two ranks sharing card 0 over gloo, each holding
+    half of every tower leaf JAX's rule shards, against one unsharded
+    process on the same pattern weights: (a) phase 3's bf16 1024-px
+    request, ``mask_cls`` and ``mask_pred`` within 1e-3 of the process's
+    largest magnitude (the largest difference printed) and the checksum
+    within 1e-3 of ``LOGIT_SUMS``; (b) phase 8's float32 step at batch 2 (``full_step``:
+    the process's assignment and points), metrics within 1e-4 and
+    gradients within 1e-3 as phase 13 (b), both ranks bitwise equal; each
+    kernel held to float64 on the inputs the ranks' runs gave it; 6
+    forward launches a request, 6 + 6 a step. Per rank: the frozen bytes
+    held against the whole, peak memory, request and step ms, the
+    gathers' count and ms."""
+    import os
+    import shutil
+
+    from odise_torch.engine.launch import launch
+    from odise_torch.model_zoo.factory import build_category_odise
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "output", "chip_smoke_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    _rank_tf32_off()
+
+    # the one process: (a)'s request and (b)'s step, unsharded
+    train_labels, thing133 = vocabulary(80, 53, "category")
+    model = build_category_odise("full", train_labels=train_labels, device="cuda",
+                                 dtype=torch.bfloat16)
+    pattern_fill_(model)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        one_req = serve(model, [(train_labels, thing133)] * 2, pattern_image(1024, "cuda"),
+                        train_labels)
+    one_req_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    one_out = {k: one_req[0][k].float().cpu() for k in ("mask_cls", "mask_pred")}
+    one_req_ms = ", ".join(f"{q['ms']:.1f}" for q in one_req)
+    del model, one_req
+    torch.cuda.empty_cache()
+    one = full_step("category", [0, 1])
+    torch.save({k: one.pop(k) for k in ("grads", "draws", "matched", "points")},
+               os.path.join(root, "category_one.pt"))
+    torch.cuda.empty_cache()
+    seconds_one = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    launch(_mesh_rank, MESH_MODEL, dist_url=f"file://{root}/mesh", args=(root,),
+           backend="gloo", device="cuda:0")
+    seconds_ranks = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(root, f"mesh{r}.json"))) for r in range(MESH_MODEL)]
+    outs = [torch.load(os.path.join(root, f"request{r}.pt")) for r in range(MESH_MODEL)]
+    faults = []
+    want = LOGIT_SUMS[len(train_labels)]
+    for r, (x, o) in enumerate(zip(ranks, outs)):
+        diff = {k: float((o[k].float() - one_out[k]).abs().max()) for k in one_out}
+        held, whole = x["request_frozen_bytes"]
+        log(f"(a) rank {r}: {x['sharded_leaves']} tower leaves sharded, frozen towers "
+            f"{held / 2 ** 30:.3f} of {whole / 2 ** 30:.3f} GiB held; requests "
+            + ", ".join(f"{ms:.1f}" for ms in x["request_ms"])
+            + f" ms (the one process {one_req_ms} ms); gathers a request "
+            + ", ".join(f"{n} in {ms:.1f} ms" for n, ms in x["gathers"])
+            + f"; peak {x['request_peak_gib']:.2f} GiB (the one process "
+            f"{one_req_peak:.2f}); launches {x['request_launches']}; logit_sum "
+            f"{x['logit_sum'][0]:.6e} (recorded {want:.6e}); largest difference from the "
+            f"one process: mask_cls {diff['mask_cls']:.3e}, mask_pred {diff['mask_pred']:.3e}")
+        faults += [(not all(abs(ls - want) <= 1e-3 * want for ls in x["logit_sum"]),
+                    f"(a) rank {r} logit_sum {x['logit_sum']}"),
+                   (not all(diff[k] <= 1e-3 * float(one_out[k].abs().max()) for k in diff),
+                    f"(a) rank {r} differs from the one process: {diff}"),
+                   (tuple(x["request_launches"]) != (12, 0),
+                    f"(a) rank {r} launches {x['request_launches']}"),
+                   (not 2 * held < 1.01 * whole, f"(a) rank {r} holds {held} of {whole}")]
+        st = x["step"]
+        rel = {k: abs(st["metrics"][k] - v) / max(abs(v), 1e-30)
+               for k, v in one["metrics"].items()}
+        worst_metric = max(rel.items(), key=lambda kv: kv[1])
+        held, whole = st["frozen_bytes"]
+        log(f"(b) rank {r}: frozen towers {held / 2 ** 30:.3f} of {whole / 2 ** 30:.3f} GiB "
+            f"held; step {st['ms']:.1f} ms (the one process {one['ms']:.1f} ms), gathers "
+            f"{x['step_gathers'][0]} in {x['step_gathers'][1]:.1f} ms; peak "
+            f"{st['peak_gib']:.2f} GiB (the one process {one['peak_gib']:.2f}); launches "
+            f"{st['launches']}; total_loss {st['metrics']['total_loss']:.6e} (the one process "
+            f"{one['metrics']['total_loss']:.6e}), largest relative metric difference "
+            f"{worst_metric[1]:.3g} ({worst_metric[0]}); gradients' worst "
+            f"{st['grad_worst'][0]:.3g} of the bound ({st['grad_worst'][1]}); its own "
+            f"auction matched {st['differ']['matched']} and its own sampling chose other "
+            f"points for {st['differ']['points']} of {st['valid']} (layer, valid target) "
+            f"pairs; draws {st['draws']}, unequal {st['draws_unequal']}")
+        faults += [(worst_metric[1] > PARALLEL_METRIC_RTOL, f"(b) rank {r} metric {worst_metric}"),
+                   (st["grad_worst"][0] > 1, f"(b) rank {r} gradients {st['grad_worst']}"),
+                   (st["draws"] == 0 or st["draws_unequal"], f"(b) rank {r} draws"),
+                   (tuple(st["launches"]) != (6, 6), f"(b) rank {r} launches {st['launches']}"),
+                   (not 2 * held < 1.01 * whole, f"(b) rank {r} holds {held} of {whole}")]
+    faults += [(ranks[0]["step"]["grad_digest"] != ranks[1]["step"]["grad_digest"]
+                or ranks[0]["step"]["param_digest"] != ranks[1]["step"]["param_digest"],
+                "(b) the ranks' gradients or parameters differ")]
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 15: the one process {seconds_one:.1f} s, the two ranks {seconds_ranks:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    for bad, what in faults:
+        if bad:
+            raise AssertionError(f"mesh phase: {what}")
+    return dict(seconds=seconds, fwd_err=max(max(x["fwd_err"], x["step_fwd_err"]) for x in ranks),
+                bwd_err=max(x["bwd_err"] for x in ranks),
+                launches={"request_per_rank": [x["request_launches"] for x in ranks],
+                          "step_per_rank": [x["step"]["launches"] for x in ranks]},
+                request_ms=[x["request_ms"] for x in ranks],
+                step_ms=[x["step"]["ms"] for x in ranks])
 
 
 def main():
@@ -3232,6 +3475,13 @@ def main():
     ldm = ldm_phase()
     phase_done(14)
 
+    # 15. the mesh's model axis: the towers sharded over two ranks
+    torch.cuda.empty_cache()
+    mesh = mesh_phase()
+    errs.append(mesh["fwd_err"])
+    bwd_errs.append(mesh["bwd_err"])
+    phase_done(15)
+
     log(card_line())
     bwd_plan = backward_plan(2, sum(h * w for h, w in SHAPES), HEADS, HEAD_DIM, torch.bfloat16,
                              POINTS)
@@ -3255,6 +3505,9 @@ def main():
         "reference_weights_512px_f32": {k: ref_w["kernel"][k] for k in (
             "max_abs_err", "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by")},
         "launches_prepared_ade20k_eval": ldm["launches"][0],
+        "launches_mesh": {"request_per_rank": [ln[0] for ln in
+                                               mesh["launches"]["request_per_rank"]],
+                          "step_per_rank": [ln[0] for ln in mesh["launches"]["step_per_rank"]]},
         "in_place_train_ms": train["fwd_in_place_ms"],
         "bucket_shapes_checked": [SHAPES, WIDE, TALL],
         "largest_bucket": largest}, {
@@ -3279,6 +3532,7 @@ def main():
         "launches_train_net": {k: v[1] for k, v in cli["launches"].items()},
         "launches_dataset_train_net": data["launches"][1],
         "launches_prepared_ade20k_eval": ldm["launches"][1],
+        "launches_mesh": {"step_per_rank": [ln[1] for ln in mesh["launches"]["step_per_rank"]]},
         "launches_parallel": {"step_per_rank": {k: [ln[1] for ln in v["launches"]]
                                                 for k, v in par["steps"].items()},
                               "train_net_per_rank": [c["launches"][1] for c in par["cli"]]}}]}),

@@ -98,7 +98,7 @@ def run_convergence(
     from .losses import CriterionConfig, GroundingConfig
     from .model_zoo.factory import build_caption_odise, build_category_odise, resolve_device
     from .models.clip.tokenizer import tokenize
-    from .parallel import get_rank, get_world_size
+    from .parallel import get_data_rank, get_data_world_size, get_world_size
 
     assert variant in ("category", "caption"), variant
     caption = variant == "caption"
@@ -142,8 +142,9 @@ def run_convergence(
     mapper = COCOPanopticDatasetMapper(image_size=size, max_instances=max_instances,
                                        with_captions=caption, num_words=4 if caption else 8,
                                        device=device)
-    loader = build_train_loader(train_records, mapper, batch, num_hosts=get_world_size(),
-                                host_id=get_rank(), seed=seed)
+    loader = build_train_loader(train_records, mapper, batch,
+                                num_hosts=get_data_world_size(), host_id=get_data_rank(),
+                                seed=seed)
     eval_cfg = ConfigDict(dataloader=ConfigDict(
         wrapper=ConfigDict(labels=[list(l) for l in SYNTH_LABELS], dataset_name=dataset_name,
                            semantic_on=True, panoptic_on=True, instance_on=True),

@@ -14,18 +14,37 @@ to the image as cv2 clips it), then fills between the edges of each row by
 the even-odd rule over every polygon together, in 16.16 fixed point; so
 where two polygons of one annotation overlap, the overlap is left unfilled
 but for its outlines, as in cv2.
+
+A fourth payload is ADE20K's: ``InstancePngMask``, an instance PNG and the
+(R, G) key of its pixels, which the prepared instance json names in place
+of a ``segmentation`` (``prepare/prepare_ade20k_ins_seg.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 
-Segmentation = Union[List[Sequence[float]], Dict]
+from .image_io import read_label
 
-__all__ = ["annotations_to_masks", "decode_compressed_counts", "encode_compressed_counts",
-           "mask_to_rle", "polygons_to_mask", "rle_to_mask", "segmentation_to_mask"]
+
+@dataclasses.dataclass(frozen=True)
+class InstancePngMask:
+    """An instance as ADE20K stores it: the pixels of the PNG ``png`` whose
+    (R, G) equals ``key`` (R the thing class, G the instance). The PNG is
+    read when the mask is built."""
+
+    png: str
+    key: Tuple[int, int]
+
+
+Segmentation = Union[List[Sequence[float]], Dict, InstancePngMask]
+
+__all__ = ["InstancePngMask", "annotations_to_masks", "decode_compressed_counts",
+           "encode_compressed_counts", "mask_to_rle", "polygons_to_mask", "rle_to_mask",
+           "segmentation_to_mask"]
 
 
 def decode_compressed_counts(s: Union[str, bytes]) -> List[int]:
@@ -241,7 +260,21 @@ def segmentation_to_mask(seg: Segmentation, h: int, w: int) -> np.ndarray:
 
 
 def annotations_to_masks(anns: List[Dict], h: int, w: int) -> np.ndarray:
-    """[N, h, w] bool masks of a list of COCO annotations."""
+    """[N, h, w] bool masks of a list of COCO annotations (each instance
+    PNG among them read once)."""
     if not anns:
         return np.zeros((0, h, w), bool)
-    return np.stack([segmentation_to_mask(a["segmentation"], h, w) for a in anns])
+    pngs: Dict[str, np.ndarray] = {}
+
+    def mask(seg: Segmentation) -> np.ndarray:
+        if not isinstance(seg, InstancePngMask):
+            return segmentation_to_mask(seg, h, w)
+        if seg.png not in pngs:
+            pngs[seg.png] = read_label(seg.png)
+        inst = pngs[seg.png]
+        if inst.ndim != 3 or inst.shape[:2] != (h, w):
+            raise ValueError(f"{seg.png}: instance PNG of shape {inst.shape}, "
+                             f"image {(h, w)}")
+        return (inst[..., 0] == seg.key[0]) & (inst[..., 1] == seg.key[1])
+
+    return np.stack([mask(a["segmentation"]) for a in anns])

@@ -3,6 +3,14 @@
 semantic validation sets, the 100-thing instance splits and the A-847 full
 semantic validation set (16-bit TIFF labels, ignore 65535); and
 ``load_sem_seg``, the image and label pairs of a semantic dataset.
+
+The instance jsons (``prepare/prepare_ade20k_ins_seg.py``, as the JAX
+script writes them) number their images 0 to n-1 and name each instance's
+mask by its PNG under ``annotations_instance/<split>/`` and its (R, G) key,
+with no ``segmentation``. The port reads them so (ROADMAP C34; the JAX
+package cannot): the instance splits' records carry ``InstancePngMask``
+payloads, and ``load_ade_instance_gt_index``, the panoptic task's instance
+ground truth, matches the json's images to the records by file name.
 """
 
 from __future__ import annotations
@@ -12,7 +20,8 @@ import os
 from typing import Dict, List, Optional
 
 from ..catalog import DatasetCatalog, MetadataCatalog
-from .register_coco import get_dataset_root, load_coco_instances_json
+from .register_coco import (get_dataset_root, load_coco_instances_json,
+                            load_instance_gt_index)
 
 _METADATA_DIR = os.path.join(os.path.dirname(__file__), "metadata")
 
@@ -44,6 +53,25 @@ def ade_instance_meta() -> Dict:
     things = [c for c in ade150_categories() if c["isthing"]]
     return {"thing_classes": [c["name"] for c in things],
             "thing_dataset_id_to_contiguous_id": {c["id"]: i for i, c in enumerate(things)}}
+
+
+def ade_instance_png_dir(json_file: str) -> str:
+    """Where the instance PNGs of ``ade20k_instance_{train,val}.json`` lie:
+    ``annotations_instance/{training,validation}`` beside the json."""
+    split = os.path.splitext(os.path.basename(json_file))[0].rsplit("_", 1)[-1]
+    sub = {"train": "training", "val": "validation"}.get(split)
+    if sub is None:
+        raise ValueError(f"{json_file}: not an ADE20K instance json of a known split")
+    return os.path.join(os.path.dirname(json_file), "annotations_instance", sub)
+
+
+def load_ade_instance_gt_index(json_file: str, id_map: Dict[int, int]) -> Dict:
+    """The instance ground truth of an ADE20K task from its prepared json:
+    image file name -> its annotations, category ids through ``id_map``
+    (``ade_instance_meta()``'s or ``ade150_meta()``'s
+    ``thing_dataset_id_to_contiguous_id``), masks read from the instance
+    PNGs when the image is evaluated."""
+    return load_instance_gt_index(json_file, id_map, png_dir=ade_instance_png_dir(json_file))
 
 
 def load_ade_panoptic_json(json_file: str, image_dir: str, gt_dir: str, semseg_dir: str,
@@ -113,7 +141,8 @@ def register_ade20k(root: Optional[str] = None) -> None:
             DatasetCatalog.register(name, (lambda jf=inst_json, im=inst_img_dir:
                                            load_coco_instances_json(
                                                jf, im,
-                                               inst_meta["thing_dataset_id_to_contiguous_id"])))
+                                               inst_meta["thing_dataset_id_to_contiguous_id"],
+                                               png_dir=ade_instance_png_dir(jf))))
         MetadataCatalog.get(name).set(
             image_root=inst_img_dir, json_file=inst_json, ignore_label=255,
             evaluator_type="coco_instance_seg", **inst_meta)

@@ -17,6 +17,7 @@ from typing import Dict, List, Optional
 
 from ..build import coco_panoptic_categories
 from ..catalog import DatasetCatalog, MetadataCatalog
+from ..coco_mask import InstancePngMask
 
 
 def get_dataset_root() -> str:
@@ -71,24 +72,33 @@ def load_coco_panoptic_json(json_file: str, image_dir: str, gt_dir: str, semseg_
     return ret
 
 
-def load_coco_instances_json(json_file: str, image_dir: str,
-                             id_map: Dict[int, int]) -> List[dict]:
+def _instance(ann: dict, id_map: Dict[int, int], png_dir: Optional[str]) -> dict:
+    """One json annotation as the evaluation reads it: the category id
+    through ``id_map``; the COCO ``segmentation``, or where the annotation
+    names an instance PNG and key instead (ADE20K's prepared json, with
+    ``png_dir`` the directory of its PNGs), an ``InstancePngMask``."""
+    seg = ann.get("segmentation")
+    if seg is None and png_dir is not None and "source_png" in ann:
+        seg = InstancePngMask(os.path.join(png_dir, ann["source_png"]),
+                              tuple(int(v) for v in ann["instance_key"]))
+    return {"category_id": id_map[ann["category_id"]], "segmentation": seg,
+            "iscrowd": int(ann.get("iscrowd", 0))}
+
+
+def load_coco_instances_json(json_file: str, image_dir: str, id_map: Dict[int, int],
+                             png_dir: Optional[str] = None) -> List[dict]:
     """COCO instance json -> records with ``annotations`` (category ids
     through ``id_map``, ``segmentation`` left in its COCO encoding for
-    ``data.coco_mask``), as detectron2's ``load_coco_json``."""
+    ``data.coco_mask``, or an ``InstancePngMask`` from ``png_dir`` where the
+    json names a PNG), as detectron2's ``load_coco_json``."""
     with open(json_file) as f:
         info = json.load(f)
     anns_by_image: Dict[int, List[dict]] = {}
     for ann in info.get("annotations", []):
         if ann.get("category_id") not in id_map:
             continue
-        anns_by_image.setdefault(int(ann["image_id"]), []).append({
-            "category_id": id_map[ann["category_id"]],
-            "segmentation": ann.get("segmentation"),
-            "bbox": ann.get("bbox"),
-            "iscrowd": int(ann.get("iscrowd", 0)),
-            "area": ann.get("area"),
-        })
+        anns_by_image.setdefault(int(ann["image_id"]), []).append(dict(
+            _instance(ann, id_map, png_dir), bbox=ann.get("bbox"), area=ann.get("area")))
     images = {im["id"]: im for im in info["images"]}
     return [{"file_name": os.path.join(image_dir, im["file_name"]),
              "image_id": int(image_id),
@@ -98,21 +108,38 @@ def load_coco_instances_json(json_file: str, image_dir: str,
             for image_id, im in sorted(images.items())]
 
 
-def load_instance_gt_index(json_file: str, id_map: Dict[int, int]) -> Dict[int, List[dict]]:
-    """image_id -> its annotations (category id through ``id_map``,
-    ``segmentation``, ``iscrowd``), the evaluation's instance ground truth."""
+class InstanceGtByFileName(dict):
+    """An instance gt index keyed by the image's file name (ADE20K's
+    prepared json, which numbers its images 0 to n-1 where the records'
+    ``image_id`` is the file stem)."""
+
+
+def load_instance_gt_index(json_file: str, id_map: Dict[int, int],
+                           png_dir: Optional[str] = None) -> Dict:
+    """The evaluation's instance ground truth: image -> its annotations
+    (category id through ``id_map``, ``segmentation``, ``iscrowd``), keyed
+    by integer image id (COCO). With ``png_dir``, the json's images are
+    matched to records by file name and its masks read from the PNGs there
+    when an image is evaluated: ADE20K's layout
+    (``register_ade20k.load_ade_instance_gt_index``)."""
     with open(json_file) as f:
         info = json.load(f)
-    out: Dict[int, List[dict]] = {}
+    out: Dict = {} if png_dir is None else InstanceGtByFileName()
+    names = {im["id"]: os.path.basename(im["file_name"]) for im in info.get("images", [])}
     for ann in info.get("annotations", []):
         if ann.get("category_id") not in id_map:
             continue
-        out.setdefault(int(ann["image_id"]), []).append({
-            "category_id": id_map[ann["category_id"]],
-            "segmentation": ann.get("segmentation"),
-            "iscrowd": int(ann.get("iscrowd", 0)),
-        })
+        key = int(ann["image_id"]) if png_dir is None else names[ann["image_id"]]
+        out.setdefault(key, []).append(_instance(ann, id_map, png_dir))
     return out
+
+
+def instance_gt_of(index: Dict, rec: dict) -> List[dict]:
+    """``rec``'s annotations in an index of ``load_instance_gt_index`` (or a
+    dict by integer image id); none for an image the index does not name."""
+    if isinstance(index, InstanceGtByFileName):
+        return index.get(os.path.basename(rec["file_name"]), [])
+    return index.get(int(rec["image_id"]), [])
 
 
 def register_coco_panoptic(root: Optional[str] = None) -> None:

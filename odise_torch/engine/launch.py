@@ -32,7 +32,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ..parallel.multihost import initialize_multihost
+from ..parallel.multihost import initialize_multihost, set_data_axis
 
 __all__ = ["launch", "rank_device"]
 
@@ -110,4 +110,5 @@ def _distributed_worker(local_rank, main_func, world_size, num_gpus_per_machine,
     try:
         main_func(*args)
     finally:
+        set_data_axis(None)  # a mesh's groups go with the process group
         torch.distributed.destroy_process_group()

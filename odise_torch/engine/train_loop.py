@@ -15,6 +15,9 @@ so acts on the global norm, and the metrics are averaged too. Together with
 the criterion's global counts and draws (``losses/set_criterion.py``) and
 the grounding loss's gathered negatives, the step is the JAX package's one
 global step on the union batch, and every rank's parameters stay equal.
+With a model axis (``parallel/mesh.py``) the ranks of one model group take
+the same batch; the gradients' all-reduce runs over every rank, which also
+makes their copies bitwise equal.
 ``DistributedDataParallel`` is not used: the training forward runs the
 towers on 4 crops under ``torch.utils.checkpoint`` and may loop over
 micro-batches, where DDP's reducer expects one forward per backward.
@@ -30,6 +33,7 @@ import torch
 
 from ..losses import CriterionConfig, mask_grounding_criterion, set_criterion
 from ..losses.grounding import GroundingConfig
+from ..parallel.mesh import FROZEN_TOWER_KEYWORDS, is_frozen_path
 from ..parallel.multihost import (all_reduce_mean_, all_reduce_sum, gather_pickled,
                                   get_world_size)
 from .optimizer import clip_by_global_norm_, global_norm
@@ -37,16 +41,6 @@ from .optimizer import clip_by_global_norm_, global_norm
 __all__ = ["FROZEN_TOWER_KEYWORDS", "Trainer", "check_finite", "is_frozen_path",
            "make_caption_train_step", "make_category_train_step",
            "partition_params"]
-
-# the JAX package's frozen towers (odise_tpu/parallel/mesh.py), matched
-# against every part of a parameter's name
-FROZEN_TOWER_KEYWORDS = ("vae", "unet", "sd_text", "clip_visual", "_text_enc",
-                         "text_encoder", "clip_head")
-
-
-def is_frozen_path(path: Tuple[str, ...]) -> bool:
-    return any(any(k in comp for k in FROZEN_TOWER_KEYWORDS) for comp in path)
-
 
 def partition_params(model: torch.nn.Module
                      ) -> Tuple[Dict[str, torch.nn.Parameter], Dict[str, torch.nn.Parameter]]:

@@ -2,7 +2,9 @@
 ``do_test`` in ``tools/train_net.py``, without the config system).
 
 With ``across_ranks`` and several ranks (``torch.distributed``) each rank
-evaluates ``records[rank::world]`` and the evaluators' statistics (the
+evaluates ``records[rank::world]`` over the mesh's data axis (the ranks of
+one model group evaluate the same records, as their forwards gather the
+frozen towers together) and the evaluators' statistics (the
 semantic confusion matrix, ``PQStat``, the instance entries, the image and
 host-fallback counts) are gathered and merged in rank order before the
 metrics are computed, so that every rank returns the same metrics, those of
@@ -26,8 +28,9 @@ int, ``pan_seg`` [H, W] segment ids and ``segments_info``
 registered datasets do; a label file that is absent leaves its task without
 ground truth for the image, as in ``tools/train_net.py``. Instance gt comes
 from a record's COCO ``annotations``, else from ``inst_gt_index`` (the
-task's instances json by image id), else from the thing segments of the
-panoptic gt.
+task's instances json, keyed by integer image id for COCO and by file name
+for ADE20K's prepared json), else from the thing segments of the panoptic
+gt.
 """
 
 from __future__ import annotations
@@ -41,12 +44,13 @@ import numpy as np
 import torch
 
 from ..data.coco_mask import annotations_to_masks
+from ..data.datasets.register_coco import instance_gt_of
 from ..data.image_io import read_image, read_label, read_rgb_png
 from ..data.transforms import (AugInput, ResizeShortestEdge, resize_bilinear,
                                resize_nearest, rgb2id)
 from ..models.inference import (instance_inference, panoptic_inference,
                                 semantic_inference)
-from ..parallel.multihost import gather_pickled, get_rank, get_world_size
+from ..parallel.multihost import gather_pickled, get_data_rank, get_data_world_size
 from .buckets import compute_eval_buckets, pick_bucket
 from .device_eval import DeviceEvalRunner
 from .evaluator import print_csv_format
@@ -98,7 +102,7 @@ def prep_record(rec: dict, resize: ResizeShortestEdge, buckets, thing_mask: np.n
         if anns is None and inst_gt_index is not None and "image_id" in rec:
             # an image the index does not name has no instances: its
             # detections still count as false positives
-            anns = inst_gt_index.get(int(rec["image_id"]), [])
+            anns = instance_gt_of(inst_gt_index, rec)
         if anns is not None:
             inst_gt_masks = annotations_to_masks(anns, oh, ow)
             inst_gt_classes = np.asarray([a["category_id"] for a in anns], np.int64)
@@ -130,8 +134,9 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
     semantic (mIoU, ...), panoptic (PQ, ...) and instance (AP, ...) metrics
     of the tasks that are on, with ``images``, ``s_per_img`` and, with
     ``device_stats``, ``host_fallback_images``; logs them under ``task``.
-    ``inst_gt_index`` (image id -> COCO annotations) is the instance gt of
-    records without ``annotations``. Image files are decoded on
+    ``inst_gt_index`` (``load_instance_gt_index``'s or
+    ``load_ade_instance_gt_index``'s) is the instance gt of records without
+    ``annotations``. Image files are decoded on
     ``infer.device``. ``across_ranks`` shares the records out over the ranks
     and merges their statistics (see the module's docstring)."""
     model = infer.model
@@ -145,7 +150,7 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
     buckets = compute_eval_buckets(short_side, max_size)
     resize = ResizeShortestEdge(short_side, max_size)
     if across_ranks:
-        records = list(records)[get_rank()::get_world_size()]
+        records = list(records)[get_data_rank()::get_data_world_size()]
 
     def evaluators():
         return (SemSegEvaluator(num_classes=K, ignore_label=ignore_label),
@@ -252,7 +257,7 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
     dt = time.perf_counter() - t_start
     if runner is not None:
         sem_ev.add_confusion(runner.flush_confusion())
-    if across_ranks and get_world_size() > 1:
+    if across_ranks and get_data_world_size() > 1:
         # every rank merges every rank's statistics in rank order, so that
         # the float sums, and the metrics, are the same on all of them
         states = gather_pickled((sem_ev.conf, pan_ev.stat, inst_ev._by_img_cat,

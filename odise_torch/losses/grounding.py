@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.helper import l2_normalize
-from ..parallel.multihost import all_gather_rows, get_rank, get_world_size
+from ..parallel.multihost import all_gather_rows, get_data_rank, get_data_world_size
 
 __all__ = ["GroundingConfig", "mask_grounding_criterion"]
 
@@ -55,13 +55,13 @@ def _one_layer_loss(outputs, word_valid_mask, cfg):
         sim = (masks @ words.T * logit_scale).reshape(-1, Q, words.shape[0] // K, K)
         return (torch.softmax(sim, dim=1) * sim).sum(dim=1).mean(-1)
 
-    if cfg.collect_mode is None or get_world_size() == 1:
+    if cfg.collect_mode is None or get_data_world_size() == 1:
         labels = torch.arange(B, device=m.device)
         sim_g_img_txt = sim_img_g_txt = pool(m, w)
     else:
         diff = cfg.collect_mode == "diff"
         gm, gw = all_gather_rows(m, diff), all_gather_rows(w, diff)  # [W*B*Q, C], [W*B*K, C]
-        labels = torch.arange(B, device=m.device) + B * get_rank()
+        labels = torch.arange(B, device=m.device) + B * get_data_rank()
         sim_g_img_txt = pool(gm, w)   # [W*B, B]: every image against the local texts
         sim_img_g_txt = pool(m, gw)   # [B, W*B]: the local images against every text
 

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..ops.grid_sample import point_sample_binary, sample_nchw
 from ..ops.lap import assign_from_cost
-from ..parallel.multihost import get_rank, get_world_size
+from ..parallel.multihost import get_data_rank, get_data_world_size
 
 __all__ = ["assign_from_cost", "batch_dice_cost", "batch_sigmoid_ce_cost",
            "draw_rows", "draw_uniform", "match_cost_matrix"]
@@ -39,12 +39,13 @@ def draw_rows(generator: Optional[torch.Generator], shape: Tuple[int, ...],
     """This rank's ``shape[0]`` rows of one ``draw_uniform`` over every
     rank's rows (the ranks hold equal batches and seed ``generator`` alike):
     the draw the one-process step on the union batch makes, sliced."""
-    world = get_world_size()
+    world = get_data_world_size()
     if world == 1:
         return draw_uniform(generator, shape, device, kind, layer)
     n = shape[0]
+    rank = get_data_rank()
     rows = draw_uniform(generator, (world * n,) + tuple(shape[1:]), device, kind, layer)
-    return rows[get_rank() * n:(get_rank() + 1) * n]
+    return rows[rank * n:(rank + 1) * n]
 
 
 def batch_sigmoid_ce_cost(pred_pts: torch.Tensor, tgt_pts: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from . import matcher
 from ..ops.grid_sample import point_sample_binary, sample_nchw
-from ..parallel.multihost import all_reduce_sum, get_world_size
+from ..parallel.multihost import all_reduce_sum, get_data_world_size
 
 __all__ = ["CriterionConfig", "get_uncertain_point_coords_with_randomness",
            "set_criterion"]
@@ -152,7 +152,7 @@ def set_criterion(outputs: Dict, targets: Dict[str, torch.Tensor],
     matched_all = matcher.assign_from_cost(torch.cat(costs, dim=0))
     matched = [matched_all[i * B:(i + 1) * B] for i in range(len(layers))]
     count = targets["valid"].float().sum()
-    world = get_world_size()
+    world = get_data_world_size()
     class_weight_sums = [None] * len(layers)
     if world > 1:
         # the union batch's target count and class-weight sums, one collective

@@ -39,6 +39,7 @@ import torch
 from .config import (apply_overrides, auto_scale_workers, instantiate, instantiate_odise,
                      load_config, resolve)
 from .data.catalog import DatasetCatalog, MetadataCatalog
+from .data.datasets.register_ade20k import load_ade_instance_gt_index
 from .data.datasets.register_coco import load_instance_gt_index
 from .engine.checkpoint import BestCheckpointer, Checkpointer
 from .engine.defaults import default_setup
@@ -51,7 +52,8 @@ from .evaluation.run import evaluate_open_vocab
 from .model_zoo.factory import resolve_device
 from .models.clip.tokenizer import tokenize
 from .models.wrapper import OpenPanopticInference, build_open_vocabulary
-from .parallel.multihost import get_rank, get_world_size, is_main_process, sync_global_devices
+from .parallel.multihost import (get_data_rank, get_data_world_size, get_world_size,
+                                 is_main_process, sync_global_devices)
 from .utils.events import (CommonMetricPrinter, EventStorage, JSONWriter, WandbWriter,
                            WriterStack)
 
@@ -97,7 +99,7 @@ def setup(args: argparse.Namespace):
         cfg.train.run_tag = args.tag
     if args.ref > 0:
         cfg.train.reference_world_size = args.ref
-    cfg = auto_scale_workers(cfg, get_world_size())
+    cfg = auto_scale_workers(cfg, get_data_world_size())
     if args.opts:
         apply_overrides(cfg, [o for o in args.opts if "=" in o])
     device = resolve_device(cfg.train.device)
@@ -178,8 +180,12 @@ def do_test(cfg, model, max_images: int = -1, final_iter: bool = True) -> Dict[s
         instance_on = wrapper_cfg.get("instance_on", True)
         inst_json, thing_ids = meta.get("json_file"), meta.get("thing_dataset_id_to_contiguous_id")
         # the instances json is the instance gt where the dataset has one;
-        # its ids map into the task's contiguous classes
-        inst_gt_index = (load_instance_gt_index(inst_json, thing_ids)
+        # its ids map into the task's contiguous classes. ADE20K's names its
+        # masks by PNG and its images by file name (ROADMAP C34)
+        load_index = (load_ade_instance_gt_index
+                      if meta.get("evaluator_type") == "ade20k_panoptic_seg"
+                      else load_instance_gt_index)
+        inst_gt_index = (load_index(inst_json, thing_ids)
                          if instance_on and inst_json and thing_ids
                          and os.path.isfile(inst_json) else None)
         vocab = build_vocab_and_thing_mask(model, wrapper_cfg, model.train_labels)
@@ -246,9 +252,9 @@ def do_train(args, cfg) -> TrainRun:
     criterion_cfg = instantiate(cfg.criterion)
     if "mapper" in cfg.dataloader.train:
         cfg.dataloader.train.mapper.device = str(device)
-    if get_world_size() > 1:  # each rank loads its slice of the stream
-        cfg.dataloader.train.num_hosts = get_world_size()
-        cfg.dataloader.train.host_id = get_rank()
+    if get_data_world_size() > 1:  # each data rank loads its slice of the stream
+        cfg.dataloader.train.num_hosts = get_data_world_size()
+        cfg.dataloader.train.host_id = get_data_rank()
     train_loader = instantiate(cfg.dataloader.train)
     batch0 = next(train_loader)
     is_caption = "word_tokens" in batch0

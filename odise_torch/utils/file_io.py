@@ -6,7 +6,8 @@ Stable Diffusion checkpoints, and ``ODISE_MODEL_ZOO`` names a local mirror
 that is looked at first: ``<mirror>/Panoptic/odise_label_coco_50e.pth`` for
 ``odise://Panoptic/odise_label_coco_50e``, ``<mirror>/sd-v1-3.ckpt`` for
 ``sd://v1-3``. Without network only the mirror works; a remote fetch raises
-with a message that says so.
+with a message that says so. ``s3://bucket/key`` is fetched with boto3,
+where it is installed, into ``~/.cache/odise_torch/s3/bucket/key``.
 """
 
 from __future__ import annotations
@@ -80,8 +81,29 @@ def _download(url: str, filename: str) -> str:
     return local
 
 
+def _resolve_s3(path: str) -> str:
+    """The ``s3://`` handler (the reference registers one at
+    ``tools/train_net.py:53``): boto3 where it is installed, else an error
+    that says what to do; the file is kept in the local cache."""
+    try:
+        import boto3  # type: ignore
+    except ImportError as e:
+        raise FileNotFoundError(
+            f"Cannot fetch {path}: boto3 is not installed. Mirror the file "
+            f"locally and point at the local path instead.") from e
+    bucket, _, key = path[len("s3://"):].partition("/")
+    local = os.path.join(os.path.expanduser("~/.cache/odise_torch/s3"), bucket, key)
+    if not os.path.isfile(local):
+        os.makedirs(os.path.dirname(local), exist_ok=True)
+        logger.info("Downloading %s -> %s", path, local)
+        boto3.client("s3").download_file(bucket, key, local + ".tmp")
+        os.replace(local + ".tmp", local)
+    return local
+
+
 register_handler("odise://", _resolve_odise)
 register_handler("sd://", _resolve_sd)
+register_handler("s3://", _resolve_s3)
 
 
 def get_local_path(path: str) -> str:

@@ -20,6 +20,7 @@ from odise_torch.models.clip.tokenizer import tokenize  # noqa: E402
 from odise_torch.models.odise import CaptionODISE  # noqa: E402
 
 from .test_torch_towers import perturbed_params  # noqa: E402
+from .torch_threads import one_thread  # noqa: F401,E402
 
 SIZE = 128  # as in tests/test_torch_model.py: no one-value GroupNorm groups
 VOCAB = (("cat", "feline"), ("dog",), ("grass",))

@@ -21,6 +21,7 @@ from odise_torch.config import (
     load_config,
     resolve,
 )
+from .torch_threads import one_thread  # noqa: F401,E402
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 

@@ -61,6 +61,7 @@ from odise_torch.model_zoo import convert as pconv  # noqa: E402
 from odise_torch.model_zoo.from_jax import (load_flax_subtree,  # noqa: E402
                                             match_flax_tree)
 from odise_torch.models.backbone.feature_extractor import ldm_feature_dims_strides  # noqa: E402
+from .torch_threads import one_thread  # noqa: F401,E402
 
 REPO = Path(__file__).resolve().parent.parent
 SEED = 0

@@ -18,6 +18,7 @@ from odise_tpu.data import coco_mask as jcm
 from odise_torch.data import coco_mask as pcm
 from odise_torch.data.image_io import (decode_png, read_image, read_label, read_rgb_png,
                                        write_png)
+from .torch_threads import one_thread  # noqa: F401,E402
 
 SIZE = (23, 37)  # odd, not square
 
@@ -544,3 +545,123 @@ def test_nvjpeg_is_found_in_the_toolkit_named_by_cuda_home(tmp_path, monkeypatch
         "-I", str(tmp_path / "include"), "-L", str(tmp_path / "lib64"), "-l:libnvjpeg.so.12",
         "-Xlinker", f"-rpath={tmp_path / 'lib64'}")
     assert _build.flags("ms_deform_attn") == _build.NVCC_FLAGS
+
+
+# ---------------------------------------------------------------- ADE20K instances (C34)
+
+
+def _drawn_instances(inst):
+    """(A-150 class, mask bytes) of every instance the scripts keep in a
+    drawn instance map (R the thing class among the 100, G the instance)."""
+    from .test_torch_prepare import ade_things
+
+    things = ade_things()
+    keys = {(int(r), int(g)) for r, g in zip(inst[..., 0].ravel(), inst[..., 1].ravel())
+            if g > 0 and r - 1 < len(things)}
+    return sorted((things[r - 1], ((inst[..., 0] == r) & (inst[..., 1] == g)).tobytes())
+                  for r, g in keys)
+
+
+def test_ade150_with_instances_evaluates_from_prepared_files(tmp_path):
+    """ROADMAP C34: two drawn ADE20K images prepared by the port's own
+    scripts, then ``train_net.do_test`` on the shipped ADE-150 task (its
+    labels; semantic, panoptic and instance on) with TINY CategoryODISE:
+    PQ, mIoU and AP come out finite over both images. The instance ground
+    truth the task reads (``load_ade_instance_gt_index``, matched by file
+    name) and the ``ade20k_instance_val`` records both give exactly the drawn
+    instances, masks and A-150 classes."""
+    from odise_torch import train_net
+    from odise_torch.config import ConfigDict
+    from odise_torch.data.catalog import DatasetCatalog
+    from odise_torch.data.datasets.register_ade20k import (ade150_meta, ade_instance_meta,
+                                                           load_ade_instance_gt_index)
+    from odise_torch.data.datasets.register_coco import instance_gt_of
+    from odise_torch.data.build import get_openseg_labels
+    from odise_torch.model_zoo.factory import build_category_odise
+    from odise_torch.prepare import prepare_ade20k_ins_seg, prepare_ade20k_pan_seg
+
+    from .test_torch_prepare import write_ade20k_raw
+
+    stems = ["ADE_val_00000001", "ADE_val_00000002"]
+    rng = np.random.RandomState(4)
+    images = {}
+    for stem in stems:
+        images[stem] = str(tmp_path / f"{stem}.jpg")
+        Image.fromarray(rng.randint(0, 256, (48, 64, 3)).astype(np.uint8)).save(
+            images[stem], "JPEG", quality=95)
+    root = tmp_path / "datasets"
+    drawn = write_ade20k_raw(str(root), stems, images=images)
+    ade = root / "ADEChallengeData2016"
+    (ade / "annotations_detectron2" / "validation").mkdir(parents=True)
+    for stem, (sem, _) in drawn.items():  # datasets/prepare_ade20k_sem_seg.py's output
+        write_png(str(ade / "annotations_detectron2" / "validation" / (stem + ".png")),
+                  np.where(sem == 0, 255, sem.astype(np.int64) - 1).astype(np.uint8))
+    prepare_ade20k_pan_seg.main(str(root))
+    prepare_ade20k_ins_seg.main(str(root))
+
+    _reregister("odise_torch", "register_ade20k", str(root))
+    try:
+        # the ground truth, from the files, against what was drawn
+        recs = DatasetCatalog.get("ade20k_panoptic_val")
+        index = load_ade_instance_gt_index(str(ade / "ade20k_instance_val.json"),
+                                           ade150_meta()["thing_dataset_id_to_contiguous_id"])
+        for rec in recs:
+            anns = instance_gt_of(index, rec)
+            masks = pcm.annotations_to_masks(anns, 48, 64)
+            got = sorted((a["category_id"], m.tobytes()) for a, m in zip(anns, masks))
+            assert got == _drawn_instances(drawn[rec["image_id"]][1]), rec["image_id"]
+        inst_ids = ade_instance_meta()["thing_dataset_id_to_contiguous_id"]
+        for rec in DatasetCatalog.get("ade20k_instance_val"):
+            stem = os.path.splitext(os.path.basename(rec["file_name"]))[0]
+            masks = pcm.annotations_to_masks(rec["annotations"], rec["height"], rec["width"])
+            a150 = {v: k for k, v in inst_ids.items()}
+            got = sorted((a150[a["category_id"]], m.tobytes())
+                         for a, m in zip(rec["annotations"], masks))
+            assert got == _drawn_instances(drawn[stem][1]), stem
+
+        labels = get_openseg_labels("ade20k_150", True)
+        cfg = ConfigDict(dataloader=ConfigDict(
+            wrapper=ConfigDict(labels=labels, dataset_name="ade20k_panoptic_val",
+                               semantic_on=True, panoptic_on=True, instance_on=True),
+            eval_short_side=64, eval_max_size=128))
+        torch.manual_seed(0)
+        model = build_category_odise("tiny", device="cpu")
+        r = train_net.do_test(cfg, model)["main"]
+    finally:
+        _reregister("odise_torch", "register_ade20k")
+    assert r["images"] == 2
+    assert all(np.isfinite(r[k]) for k in ("PQ", "mIoU", "AP")), r
+
+
+# ---------------------------------------------------------------- s3://
+
+
+def test_s3_handler_fetches_through_boto3_into_the_cache(tmp_path, monkeypatch):
+    """``get_local_path("s3://bucket/key")`` asks boto3's S3 client for the
+    bucket and key, keeps the file under ``~/.cache/odise_torch/s3/bucket/
+    key`` and asks no more once it is there; without boto3 it raises JAX's
+    error. A stub stands in for boto3: nothing is downloaded."""
+    import sys
+    import types
+
+    from odise_torch.utils.file_io import get_local_path
+
+    calls = []
+
+    class Client:
+        def download_file(self, bucket, key, filename):
+            calls.append((bucket, key))
+            with open(filename, "w") as f:
+                f.write("weights")
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.setitem(sys.modules, "boto3", types.SimpleNamespace(
+        client=lambda service: Client() if service == "s3" else None))
+    want = tmp_path / ".cache" / "odise_torch" / "s3" / "bucket" / "dir" / "model.pth"
+    for _ in range(2):
+        assert get_local_path("s3://bucket/dir/model.pth") == str(want)
+    assert calls == [("bucket", "dir/model.pth")] and want.read_text() == "weights"
+
+    monkeypatch.setitem(sys.modules, "boto3", None)  # import boto3 raises ImportError
+    with pytest.raises(FileNotFoundError, match="boto3 is not installed. Mirror the file"):
+        get_local_path("s3://bucket/other.pth")

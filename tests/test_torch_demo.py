@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from odise_torch.model_zoo.from_jax import load_flax_params  # noqa: E402
 
 from .test_torch_towers import nchw, perturbed_params  # noqa: E402
+from .torch_threads import one_thread  # noqa: F401,E402
 
 LABELS = (("cat", "feline"), ("dog",), ("grass",))
 SIZE = 64

@@ -23,6 +23,7 @@ import torch
 import odise_tpu.diffusion as jd
 import odise_torch.diffusion as pd
 from odise_torch.diffusion import gaussian as pg
+from .torch_threads import one_thread  # noqa: F401,E402
 
 TOL = 1e-5  # float32 through a few dozen operations
 # the bound's decoder term at t = 0 takes the log of a difference of two

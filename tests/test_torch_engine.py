@@ -22,17 +22,7 @@ from odise_torch.engine.optimizer import make_optimizer, multistep_lr
 from odise_torch.engine.train_loop import Trainer, partition_params
 from odise_torch.utils.events import (CommonMetricPrinter, EventStorage, JSONWriter,
                                       WandbWriter, WriterStack)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this file's TINY runs: the suite runs files
-    in parallel processes, and torch's default of a thread per core in each
-    of them oversubscribes the cores many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from .torch_threads import one_thread  # noqa: F401,E402
 
 
 @pytest.fixture

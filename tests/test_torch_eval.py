@@ -34,6 +34,7 @@ from odise_torch.evaluation.panoptic_eval import PanopticEvaluator  # noqa: E402
 from odise_torch.evaluation.run import evaluate_open_vocab  # noqa: E402
 from odise_torch.evaluation.sem_seg_eval import SemSegEvaluator  # noqa: E402
 from odise_torch.models import inference  # noqa: E402
+from .torch_threads import one_thread  # noqa: F401,E402
 
 T = torch.from_numpy
 

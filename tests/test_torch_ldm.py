@@ -42,6 +42,7 @@ torch = pytest.importorskip("torch")
 from odise_torch.models.sd.ldm import SCALES  # noqa: E402
 from tests.test_torch_convert import (  # noqa: E402
     _openai_text, _unet, _vae, fill, jax_versions, sd_spec, summarize)
+from .torch_threads import one_thread  # noqa: F401,E402
 
 REFERENCE = Path(__file__).with_name("data") / "torch_ldm_reference.npz"
 PROMPT = "a photograph of an astronaut riding a horse"

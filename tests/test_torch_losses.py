@@ -26,6 +26,7 @@ from odise_torch.losses import grounding as pg  # noqa: E402
 from odise_torch.losses import matcher as pm  # noqa: E402
 
 from .test_torch_towers import jax_and_port  # noqa: E402
+from .torch_threads import one_thread  # noqa: F401,E402
 
 # the packages re-export functions under their modules' names
 jsc = importlib.import_module("odise_tpu.losses.set_criterion")

@@ -33,6 +33,7 @@ from odise_torch.models import inference  # noqa: E402
 from odise_torch.models.clip.tokenizer import tokenize  # noqa: E402
 
 from .test_torch_towers import perturbed_params  # noqa: E402
+from .torch_threads import one_thread  # noqa: F401,E402
 
 REPO = Path(__file__).resolve().parent.parent
 # 128-px backbone input: at TINY's default 64 px the UNet's last level is

@@ -22,6 +22,7 @@ from odise_torch.models.resize import resize  # noqa: E402
 from odise_torch.ops.ms_deform_attn import (  # noqa: E402
     _with_window, backward_counts, backward_plan, backward_smem_bytes, count_backward,
     launch_plan, ms_deform_attn, ms_deform_attn_torch)
+from .torch_threads import one_thread  # noqa: F401,E402
 
 # one level above the JAX package's 1024-row matmul cutoff, two below
 SHAPES = [(40, 40), (6, 8), (3, 4)]

@@ -37,6 +37,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from .torch_threads import TRAIN_THREADS, one_thread  # noqa: F401,E402
 
 torch = pytest.importorskip("torch")
 
@@ -45,7 +46,6 @@ CONFIGS = os.path.join(os.path.dirname(__file__), "..", "odise_torch", "configs"
 WORLD = 2
 # torch's default intra-op threads in a fresh process: the count that
 # tests/test_torch_train.py::test_train_step_matches_jax runs at
-DEFAULT_THREADS = torch.get_num_threads()
 # the evaluation case: TINY CategoryODISE on 4 synthetic 64-px records
 EVAL_RECORDS = dict(n=4, size=64, seed=7)
 EVAL_PARAM_SEED = 31
@@ -63,7 +63,7 @@ def _run_ranks(tmp_path, fn, *args):
 
     out = tmp_path / f"ranks_{fn.__name__}"
     out.mkdir()
-    # the ranks' idle threads sleep: WORLD x DEFAULT_THREADS threads
+    # the ranks' idle threads sleep: WORLD x TRAIN_THREADS threads
     # spinning on the machine's cores (``_rank_steps``) take four times as long
     wait_policy = os.environ.get("OMP_WAIT_POLICY")
     os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
@@ -83,14 +83,6 @@ def _rank_entry(fn, out, args):
 
     torch.set_num_threads(1)  # the suite runs files in parallel processes
     torch.save(fn(*args), os.path.join(out, f"rank{get_rank()}.pt"))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _install_draws(draws):
@@ -381,7 +373,7 @@ def step_ranks(train_ref, tmp_path_factory):
     and two ranks of two images with ``accum_steps=2``. Every case runs on
     one thread a rank, as the one-process port steps it is held to here
     do; category and caption run again as ``jax_category`` and
-    ``jax_caption`` on ``DEFAULT_THREADS`` a rank, as the one-process step
+    ``jax_caption`` on ``TRAIN_THREADS`` a rank, as the one-process step
     that ``test_train_step_matches_jax`` holds to JAX runs."""
     import jax
 
@@ -398,7 +390,7 @@ def step_ranks(train_ref, tmp_path_factory):
     cases["accum_ranks"] = _case(train_ref, "category", tt.step_batch(False, n=4), None,
                                  accum=2, rows=[[0, 1], [2, 3]])
     for tag in ("category", "caption"):
-        cases[f"jax_{tag}"] = dict(cases[tag], threads=DEFAULT_THREADS)
+        cases[f"jax_{tag}"] = dict(cases[tag], threads=TRAIN_THREADS)
     results = _run_ranks(tmp_path_factory.mktemp("steps"), _rank_steps, list(cases.values()))
     return cases, {name: [r[i] for r in results] for i, name in enumerate(cases)}
 
@@ -419,7 +411,7 @@ def test_two_rank_step_matches_jax_global_step(tag, step_ranks, train_ref):
     negatives gathered with gradients ("diff"): against the JAX package's
     one step on the batch of 2 (tests/data/torch_train_reference.npz) at
     ``test_train_step_matches_jax``'s tolerances, on its thread count
-    (``DEFAULT_THREADS`` a rank): the mean over the ranks of every loss and
+    (``TRAIN_THREADS`` a rank): the mean over the ranks of every loss and
     metric 1e-4 relative; the parameters after AdamW within 1e-5 where JAX's
     gradient is at least 100 eps, else 2 lr; the all-reduced gradients
     within 1e-2 of each tensor's largest entry, or 1e-6 of the set's

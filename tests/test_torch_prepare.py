@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from .torch_threads import one_thread  # noqa: F401,E402
 
 REPO = Path(__file__).resolve().parent.parent
 # A-150 stuff classes the bands use (0-based): wall, sky, floor

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from odise_torch.utils.parameter_count import parameter_count, parameter_count_table
+from .torch_threads import one_thread  # noqa: F401,E402
 
 REPO = Path(__file__).resolve().parent.parent
 K = 133

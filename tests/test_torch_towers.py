@@ -16,6 +16,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from odise_torch.model_zoo.from_jax import load_flax_params  # noqa: E402
+from .torch_threads import one_thread  # noqa: F401,E402
 
 
 def perturbed_params(shapes, seed=0):

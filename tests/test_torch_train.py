@@ -47,6 +47,7 @@ from odise_torch.model_zoo.from_jax import load_flax_params  # noqa: E402
 
 from .test_torch_losses import inject, jax_criterion_draws  # noqa: E402
 from .test_torch_towers import perturbed_params  # noqa: E402
+from .torch_threads import train_threads  # noqa: F401,E402
 
 REF = Path(__file__).with_name("data") / "torch_train_reference.npz"
 LABELS = (("thing a",), ("thing b",), ("stuff c",))

@@ -10,19 +10,9 @@ import pytest
 import torch
 
 from odise_torch import train_net
+from .torch_threads import one_thread  # noqa: F401,E402
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "odise_torch", "configs", "Panoptic")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for this file's TINY runs: the suite runs files
-    in parallel processes, and torch's default of a thread per core in each
-    of them oversubscribes the cores many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("variant", ["label", "caption"])

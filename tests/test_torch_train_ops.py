@@ -26,6 +26,7 @@ from odise_torch.ops.ms_deform_attn import (  # noqa: E402
     ms_deform_attn, ms_deform_attn_backward)
 
 from .test_torch_ops import SHAPES, _deform_inputs  # noqa: E402
+from .torch_threads import one_thread  # noqa: F401,E402
 
 _JAX_IMPLS = {
     "reference": lambda v, l, a: _reference_impl(v, SHAPES, l, a),
