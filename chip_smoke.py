@@ -85,9 +85,11 @@ Phases, each fatal on failure:
      TINY models, CategoryODISE (100 steps over the serial checkpointed
      slide) and CaptionODISE (200 steps, grounding over the local batch),
      held to ``tests/test_convergence.py``'s thresholds: the loss drop, PQ,
-     mIoU and AP after, their rise, and PQ before at chance; after each
-     run both kernels again, on the inputs its first train step gave the
-     first encoder layer;
+     mIoU and AP after, their rise, and PQ before at chance; the auction's
+     rounds and the real targets that its in-order fill after the
+     2000-round cap handed out (ROADMAP C21); after each run both
+     kernels again, on the inputs its first train step gave the first
+     encoder layer;
  11. reference weights (``reference_weights_phase``): SD v1.3, OpenAI CLIP
      ViT-L/14 with the 336-px head's own state, and a released ODISE
      checkpoint's trainable set, generated in the reference's key layout
@@ -104,7 +106,19 @@ Phases, each fatal on failure:
      image, finite outputs, a 1024x1024 map, ids in range, no more
      segments than queries classified as a label, ms per image first and
      warm, peak memory; (d) the forward kernel against float64 on
-     the inputs (b) gave the first encoder layer;
+     the inputs (b) gave the first encoder layer; (e) one float32 train
+     step (TF32 off) of FULL CategoryODISE and of FULL CaptionODISE from
+     the same tensors, on 512-px crops with 100 target slots, against the
+     JAX package's stored step (``tests/data/torch_full_train_reference
+     .npz``), on its numpy draws and taking its assignment, its chosen
+     points and its decisions at the backbone projections' ReLU near-ties:
+     every loss and metric within 1e-3 relative, every trainable gradient
+     within 1e-2 of its largest entry (or 1e-6 of the set's), every AdamW
+     change within 1e-5 (2 lr where the gradient is under 100 eps), 6 + 6
+     kernel launches a step; printed beside them, how many (layer, real
+     target) pairs and ReLU near-ties the port's own choices differ in,
+     and the real targets the auction's in-order fill handed out (ROADMAP
+     C21);
  12. datasets from their files (``dataset_phase``): nvJPEG held against
      PIL's stored decodes of the JPEG fixtures and the demo images (PSNR
      and mean absolute error, ``tests/torch_jpeg_fixtures.py``) and timed; a
@@ -1609,7 +1623,7 @@ def convergence_phase():
     out = {"auction_ms": auction_check()}
     for variant, spec in CONVERGENCE.items():
         zero_launch_counts()
-        auction_lap.calls = auction_lap.rounds = 0
+        auction_lap.calls = auction_lap.rounds = auction_lap.filled = 0
         first = FirstTrainInputs()
         try:
             r = run_convergence(variant=variant, batch=4, n_train=32, n_val=8, seed=0,
@@ -1628,7 +1642,8 @@ def convergence_phase():
         del first, v, loc, attn
         log(f"convergence {variant}: the matcher's auction ran {auction_lap.calls} times, "
             f"{auction_lap.rounds} rounds ({auction_lap.rounds / auction_lap.calls:.1f} a "
-            "call; the cap is 2000)")
+            f"call; the cap is 2000); real targets handed out by the in-order fill after "
+            f"the cap: {auction_lap.filled}")
         before, after = r["metrics_before"], r["metrics_after"]
         log(f"convergence {variant}: {r['steps']} steps, {r['sec_per_step'] * 1e3:.1f} ms a "
             f"step, loss {r['loss_first10_mean']:.4f} -> {r['loss_last10_mean']:.4f} "
@@ -1665,7 +1680,11 @@ def reference_weights_phase():
     parity with the JAX package's stored FULL run, stage by stage; (c) the
     demo's ``segment`` at FULL in bf16 on the 1024-px pattern image with
     COCO's labels, then with ``--vocab`` merged in; (d) the forward kernel
-    against float64 on the inputs (b) gave the first encoder layer."""
+    against float64 on the inputs (b) gave the first encoder layer; (e) one
+    float32 train step of FULL CategoryODISE and of FULL CaptionODISE from
+    the same tensors against the JAX package's stored step
+    (``tests/test_torch_full_train.py``): every loss, gradient and AdamW
+    change within its bound, 6 + 6 kernel launches a step."""
     import os
     import shutil
 
@@ -1679,6 +1698,7 @@ def reference_weights_phase():
     from odise_torch.model_zoo.from_jax import match_flax_tree
     from odise_torch.models.wrapper import build_open_vocabulary
     from odise_torch.ops.ms_deform_attn import ms_deform_attn
+    from tests import test_torch_full_train as full_train
     from tests.test_torch_convert import clip_spec, fill, port_parity, reference_state_dicts
 
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 parity
@@ -1741,7 +1761,9 @@ def reference_weights_phase():
         ms_deform_attn.launches = 0
 
     t0 = time.perf_counter()
-    errors, agreement, parity_model = port_parity("full", "cuda", made=made, hook=before_capture)
+    # port_parity consumes the dict it is given; (e) takes the tensors again
+    errors, agreement, parity_model = port_parity("full", "cuda", made=(dict(dicts), made[1]),
+                                                  hook=before_capture)
     parity_launches = ms_deform_attn.launches
     layer0 = hooked["layer0"]
     layer0.hook.remove()
@@ -1761,7 +1783,7 @@ def reference_weights_phase():
                                          "reference weights, 512 px, float32")
     if v.dtype != torch.float32:
         raise AssertionError(f"the parity run ran the kernel in {v.dtype}")
-    del layer0, parity_model, v, made, dicts, head_state
+    del layer0, parity_model, v, head_state
     torch.cuda.empty_cache()
 
     # (c) the demo at FULL in bf16 on the zoo model's weights
@@ -1807,9 +1829,37 @@ def reference_weights_phase():
     log(f"demo peak memory allocated: {peak_gib:.2f} GiB")
     del demo_model
     torch.cuda.empty_cache()
+
+    # (e) one FULL float32 train step of each model against the JAX package's
+    t0 = time.perf_counter()
+    train_dicts, train_shas = full_train.train_inputs("full", made)
+    ref = full_train.load_reference("full", train_shas)
+    del made, dicts
+    train_parity, missed = {}, []
+    for kind in full_train.KINDS:
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        report = full_train.port_step("full", kind, train_dicts, ref, "cuda")
+        torch.cuda.synchronize()
+        report["s"] = time.perf_counter() - t1
+        report["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        for line in full_train.report_lines(kind, report):
+            log(f"  {line}")
+        log(f"  {kind}: {report['s']:.1f} s (build, install, step), peak memory allocated "
+            f"{report['peak_gib']:.2f} GiB")
+        missed += [f"{kind}: {m}" for m in full_train.misses(report)]
+        if report["launches"] != (6, 6):
+            missed.append(f"{kind}: deform-attn launches {report['launches']}, not (6, 6)")
+        train_parity[kind] = report
+        torch.cuda.empty_cache()
+    log(f"FULL float32 train steps against the JAX package: {time.perf_counter() - t0:.1f} s")
+    del train_dicts, ref
+    if missed:
+        raise AssertionError(f"FULL train parity missed: {missed}")
     return dict(kernel=kernel, parity_launches=parity_launches, demo=demo_runs,
                 demo_peak_gib=peak_gib,
-                parity={k: e[0] for k, e in errors.items()}, agreement=agreement)
+                parity={k: e[0] for k, e in errors.items()}, agreement=agreement,
+                train_parity=train_parity)
 
 
 # phase 12: COCO's things and stuff the generated dataset draws (dataset ids)
@@ -2183,6 +2233,8 @@ def dataset_phase():
 # phase 13: two ranks share the one card over gloo (NCCL refuses two ranks
 # on one card); NCCL runs at world size 1
 PARALLEL_WORLD = 2
+# seconds a launch of ranks on the card may take before they are killed
+RANKS_TIMEOUT = 600
 PARALLEL_STEP_SEEDS = {"category": 0, "caption": 1}  # phase 8's loader and generator seeds
 # the CLI's run: the shipped COCO recipe on phase 12's files, 3 steps at a
 # total batch of 4 after auto_scale_workers(cfg, 2), the final eval on 3 images
@@ -2620,7 +2672,7 @@ def parallel_phase():
     nccl_one = collective_checks()
     dist.destroy_process_group()
     launch(_collectives_rank, PARALLEL_WORLD, dist_url=f"file://{root}/gloo_two",
-           args=(root,), backend="gloo", device="cuda:0")
+           args=(root,), backend="gloo", device="cuda:0", timeout=RANKS_TIMEOUT)
     gloo_two = [json.load(open(os.path.join(root, f"collectives{r}.json")))
                 for r in range(PARALLEL_WORLD)]
     nccl_shared = nccl_shared_card_probe(root)
@@ -2647,7 +2699,7 @@ def parallel_phase():
         steps[kind]["alone"] = [full_step(kind, [r], reference) for r in range(PARALLEL_WORLD)]
         torch.cuda.empty_cache()
     launch(_full_steps_rank, PARALLEL_WORLD, dist_url=f"file://{root}/steps",
-           args=(root,), backend="gloo", device="cuda:0")
+           args=(root,), backend="gloo", device="cuda:0", timeout=RANKS_TIMEOUT)
     for kind in ("category", "caption"):
         ranks = [json.load(open(os.path.join(root, f"{kind}{r}.json")))
                  for r in range(PARALLEL_WORLD)]
@@ -2710,7 +2762,7 @@ def parallel_phase():
     os.environ["DETECTRON2_DATASETS"] = root  # the ranks register the datasets from it
     try:
         launch(_cli_rank, PARALLEL_WORLD, dist_url=f"file://{root}/cli", args=(argv, root),
-               backend="gloo", device="cuda:0")
+               backend="gloo", device="cuda:0", timeout=RANKS_TIMEOUT)
     finally:
         if saved_root is None:
             os.environ.pop("DETECTRON2_DATASETS")
@@ -3193,7 +3245,7 @@ def mesh_phase():
 
     t0 = time.perf_counter()
     launch(_mesh_rank, MESH_MODEL, dist_url=f"file://{root}/mesh", args=(root,),
-           backend="gloo", device="cuda:0")
+           backend="gloo", device="cuda:0", timeout=RANKS_TIMEOUT)
     seconds_ranks = time.perf_counter() - t0
     ranks = [json.load(open(os.path.join(root, f"mesh{r}.json"))) for r in range(MESH_MODEL)]
     outs = [torch.load(os.path.join(root, f"request{r}.pt")) for r in range(MESH_MODEL)]
@@ -3501,7 +3553,9 @@ def main():
                                                 for k, v in par["steps"].items()},
                               "train_net_per_rank": [c["launches"][0] for c in par["cli"]]},
         "launches_reference_weights": {"parity": ref_w["parity_launches"],
-                                       "demo": [r["launches"] for r in ref_w["demo"]]},
+                                       "demo": [r["launches"] for r in ref_w["demo"]],
+                                       "train_parity": {k: r["launches"][0] for k, r in
+                                                        ref_w["train_parity"].items()}},
         "reference_weights_512px_f32": {k: ref_w["kernel"][k] for k in (
             "max_abs_err", "ms", "warm_ms", "plain_ms", "bound_ms", "bound_by")},
         "launches_prepared_ade20k_eval": ldm["launches"][0],
@@ -3532,6 +3586,8 @@ def main():
         "launches_train_net": {k: v[1] for k, v in cli["launches"].items()},
         "launches_dataset_train_net": data["launches"][1],
         "launches_prepared_ade20k_eval": ldm["launches"][1],
+        "launches_reference_weights": {"train_parity": {
+            k: r["launches"][1] for k, r in ref_w["train_parity"].items()}},
         "launches_mesh": {"step_per_rank": [ln[1] for ln in mesh["launches"]["step_per_rank"]]},
         "launches_parallel": {"step_per_rank": {k: [ln[1] for ln in v["launches"]]
                                                 for k, v in par["steps"].items()},

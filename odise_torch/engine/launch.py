@@ -20,7 +20,10 @@ runs ``main_func(*args)`` on its device:
 * ``device="cpu"``: the CPU, over gloo.
 
 Each rank takes its share of the machine's cores as intra-op threads unless
-``OMP_NUM_THREADS`` is set. A rank that raises makes ``launch`` raise.
+``OMP_NUM_THREADS`` is set. A rank that raises makes ``launch`` raise. With
+``timeout`` (seconds), ranks still running after it are terminated and
+``launch`` raises ``TimeoutError``: a rank that never reaches the others, or
+a collective that never completes, fails instead of waiting.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import logging
 import os
 import socket
+import time
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -74,7 +78,7 @@ def rank_device(device, local_rank: int, nprocs: int, backend: Optional[str]
 
 def launch(main_func: Callable, num_gpus_per_machine: int, num_machines: int = 1,
            machine_rank: int = 0, dist_url: Optional[str] = "auto", args: tuple = (),
-           backend: Optional[str] = None, device=None):
+           backend: Optional[str] = None, device=None, timeout: Optional[float] = None):
     """Run ``main_func(*args)`` in every rank (see the module's docstring).
     ``dist_url="auto"`` picks a free port on this machine (one machine only).
     Returns ``main_func``'s result at a world size of 1, else None."""
@@ -90,11 +94,20 @@ def launch(main_func: Callable, num_gpus_per_machine: int, num_machines: int = 1
         if num_machines > 1:
             raise ValueError("dist_url='auto' works on one machine only")
         dist_url = f"tcp://localhost:{_free_port()}"
-    torch.multiprocessing.start_processes(
+    context = torch.multiprocessing.start_processes(
         _distributed_worker, nprocs=num_gpus_per_machine,
         args=(main_func, world_size, num_gpus_per_machine, machine_rank, dist_url, args,
               backend, device),
-        start_method="spawn", daemon=False)
+        join=False, start_method="spawn", daemon=False)
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while not context.join(None if deadline is None else max(0.0, deadline - time.monotonic())):
+        if deadline is not None and time.monotonic() >= deadline:
+            for p in context.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+            raise TimeoutError(f"{num_gpus_per_machine} ranks still running after "
+                               f"{timeout:g} s; terminated")
     return None
 
 

@@ -108,7 +108,10 @@ def auction_lap(benefit: torch.Tensor, max_iters: int = 2000,
     check_every) and kept; rounds short of a whole ``check_every`` at the
     cap run eagerly. The host sync of each check means that the function
     cannot itself be captured into a graph. ``auction_lap.calls`` and
-    ``auction_lap.rounds`` count the calls and the rounds they ran."""
+    ``auction_lap.rounds`` count the calls and the rounds they ran, and
+    ``auction_lap.filled`` the columns that the in-order fill after the cap
+    handed out and that the rows value differently (a real target, not a
+    padding column or an invalid target's: ROADMAP C21)."""
     if benefit.dim() != 3 or benefit.shape[1] != benefit.shape[2]:
         raise ValueError(f"benefit must be [B, N, N], got {tuple(benefit.shape)}")
     benefit = benefit.float()
@@ -154,10 +157,13 @@ def auction_lap(benefit: torch.Tensor, max_iters: int = 2000,
     needs = obj_of_row < 0
     order = torch.argsort((~needs).long(), dim=1, stable=True)
     fill = torch.zeros_like(obj_of_row).scatter(1, order, free_objs)
+    if it == max_iters:
+        told_apart = benefit.amax(1) != benefit.amin(1)                # [B, N] columns
+        auction_lap.filled += int((needs & torch.gather(told_apart, 1, fill)).sum())
     return torch.where(needs, fill, obj_of_row)
 
 
-auction_lap.calls = auction_lap.rounds = 0
+auction_lap.calls = auction_lap.rounds = auction_lap.filled = 0
 
 
 def linear_sum_assignment(cost: torch.Tensor) -> torch.Tensor:

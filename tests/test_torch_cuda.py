@@ -1,8 +1,10 @@
 """The deformable-attention CUDA kernels (forward and backward) against
 their plain PyTorch versions, the evaluation statistics on the card
 against the same on the CPU, nvJPEG's decodes against PIL's, the
-collectives of training over several ranks on the card, and TINY Stable
-Diffusion sampling on the card against the CPU. Imports no JAX, so it also runs where JAX is not installed:
+collectives of training over several ranks on the card, TINY Stable
+Diffusion sampling on the card against the CPU, and FULL float32 eval
+and train steps against the JAX package's stored runs. Imports no JAX,
+so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -560,6 +562,28 @@ def test_full_parity_with_jax_through_the_converters(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["category", "caption"])
+def test_full_train_step_matches_jax(kind, cuda):
+    """One float32 train step (TF32 off) of FULL CategoryODISE or
+    CaptionODISE from the reference-layout weights against the JAX
+    package's stored step (``tests/data/torch_full_train_reference.npz``,
+    sha256-checked), on its numpy draws and taking its assignment, chosen
+    points and decisions at the backbone projections' ReLU near-ties: every
+    loss and metric, trainable gradient and AdamW change within
+    ``tests/test_torch_full_train.py``'s bounds, and both deform-attn
+    kernels launched 6 times."""
+    from . import test_torch_full_train as full_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dicts, shas = full_train.train_inputs("full")
+    ref = full_train.load_reference("full", shas)
+    report = full_train.port_step("full", kind, dicts, ref, "cuda")
+    print("\n".join(full_train.report_lines(kind, report)))
+    assert full_train.misses(report) == []
+    assert report["launches"] == (6, 6)
+
+
+@pytest.mark.cuda
 def test_tiny_latent_diffusion_card_equals_cpu(cuda):
     """TINY ``LatentDiffusion`` (widths 32, 32, 64 x 2; 3 DDIM steps, 8x8
     latents, guidance 7.5) with the reference-layout weights of
@@ -661,7 +685,7 @@ def test_collectives_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
     from odise_torch.engine.launch import launch
 
     launch(chip_smoke._collectives_rank, 2, dist_url=f"file://{tmp_path}/rendezvous",
-           args=(str(tmp_path),), backend="gloo", device="cuda:0")
+           args=(str(tmp_path),), backend="gloo", device="cuda:0", timeout=300)
     for rank in range(2):
         result = json.loads((tmp_path / f"collectives{rank}.json").read_text())
         print(result)

@@ -4,7 +4,9 @@ the rest of the demo's slice: the CLIP adapter's functions and
 
 * ``segment`` against JAX's demo steps (``demo/demo.py:194-224``: cv2
   resize of the short side, zero padding to 64, ``OpenPanopticInference``,
-  ``panoptic_inference``, crop) on one image, with the same weights;
+  ``panoptic_inference``, crop) on one image, with the same weights (JAX's
+  outputs stored by ``tests/torch_stored.py``; its ``panoptic_inference``
+  rerun live on them);
 * ``python -m odise_torch.demo`` end to end on the TINY synthetic config on
   the CPU: a PNG in, an overlay out, its segments printed;
 * the vocabulary merge and the checkpoint-kind rule of ``--init-from``.
@@ -27,54 +29,126 @@ LABELS = (("cat", "feline"), ("dog",), ("grass",))
 SIZE = 64
 
 
-@pytest.fixture(scope="module")
-def demo_models():
-    """TINY CategoryODISE with the CLIP head in both packages, a 128-px
-    backbone (well-conditioned GroupNorm, ROADMAP C6), the same perturbed
-    parameters, the logit scales at their start (1/0.07) so that queries
-    classify as labels rather than null."""
+IMAGE_SEED = 5
+
+
+def _jax_model():
     from odise_tpu.model_zoo.factory import build_category_odise as jax_build
+
+    return jax_build("tiny", train_labels=LABELS, backbone_in_size=(128, 128))
+
+
+def _padded(img):
+    """The demo's steps before the model (``demo/demo.py:194-224``): the
+    short side resized to ``SIZE`` by the port (cv2's rule), zero padding to
+    a multiple of 64."""
+    from odise_torch.data.transforms import resize_image
+
+    scale = SIZE / min(img.shape[:2])
+    nh, nw = int(img.shape[0] * scale + 0.5), int(img.shape[1] * scale + 0.5)
+    h64, w64 = -(-nh // 64) * 64, -(-nw // 64) * 64
+    padded = np.zeros((1, h64, w64, 3), np.float32)
+    padded[0, :nh, :nw] = resize_image(torch.from_numpy(img), nh, nw).numpy() / 255.0
+    return padded
+
+
+def jax_shapes():
     from odise_tpu.models.odise import CategoryODISE as JCategoryODISE
 
-    from odise_torch.model_zoo.factory import build_category_odise
-
-    jm = jax_build("tiny", train_labels=LABELS, backbone_in_size=(128, 128))
-    shapes = jax.eval_shape(lambda: jm.init(
+    jm = _jax_model()
+    return jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)), jnp.zeros((4, 16)),
         method=JCategoryODISE.init_full))
+
+
+def stored_inputs(shapes):
+    """TINY CategoryODISE's perturbed parameters on the JAX model's shapes,
+    a 128-px backbone (well-conditioned GroupNorm, ROADMAP C6), the logit
+    scales at their start (1/0.07) so that queries classify as labels
+    rather than null; a 50x70 uint8 image, resized and padded as the demo
+    does."""
     params = perturbed_params(shapes, seed=11)
     p = params["params"]
     # logit scales as the modules start them (exp = 1/0.07), not near 0
     for scope in (p["sem_seg_head"]["transformer_predictor"]["post_mask_embed"],
                   p["clip_head"]):
         scope["logit_scale"] = np.full((), np.log(1 / 0.07), np.float32)
+    img = (np.random.RandomState(IMAGE_SEED).rand(50, 70, 3) * 255).astype(np.uint8)
+    return dict(params=params, image=img, padded=_padded(img))
+
+
+def _jax_panoptic(mask_cls, mask_pred):
+    from odise_tpu.models.inference import panoptic_inference as jax_panoptic
+
+    return jax_panoptic(jnp.asarray(mask_cls)[0], jnp.asarray(mask_pred)[0],
+                        jnp.ones(len(LABELS), bool), object_mask_threshold=0.0,
+                        overlap_threshold=0.0)
+
+
+def jax_outputs(inputs):
+    """JAX's demo steps after the padding: ``OpenPanopticInference`` over
+    the vocabulary (every label a thing) and ``panoptic_inference``
+    (``tests/torch_stored.py`` keeps their outputs)."""
+    from odise_tpu.models.wrapper import (OpenPanopticInference as JInfer,
+                                          build_open_vocabulary as jax_vocab)
+
+    jm = _jax_model()
+    params = jax.tree_util.tree_map(jnp.asarray, inputs["params"])
+    jvocab = jax_vocab(jm, params, [list(l) for l in LABELS],
+                       thing_mask=np.ones(len(LABELS), bool), with_clip_head=True)
+    mask_cls, mask_pred = JInfer(jm, params, jvocab)(jnp.asarray(inputs["padded"]))
+    pan = _jax_panoptic(mask_cls, mask_pred)
+    return {"mask_cls": np.asarray(mask_cls), "mask_pred": np.asarray(mask_pred),
+            "panoptic_seg": np.asarray(pan.panoptic_seg),
+            "segment_category": np.asarray(pan.segment_category),
+            "num_segments": np.asarray(pan.num_segments)}
+
+
+@pytest.fixture(scope="module")
+def demo_models():
+    """The stored JAX side's inputs and outputs (``tests/torch_stored.py``),
+    and the port model with the same parameters."""
+    from odise_torch.model_zoo.factory import build_category_odise
+
+    from . import torch_stored
+
+    inputs = stored_inputs(torch_stored.shapes("demo"))
+    stored = torch_stored.load("demo", inputs)
     pm = build_category_odise("tiny", train_labels=LABELS, backbone_in_size=(128, 128),
                               device="cpu")
-    load_flax_params(pm, params)
-    return jm, params, pm
+    load_flax_params(pm, inputs["params"])
+    return inputs, stored, pm
+
+
+def test_stored_jax_side_is_jax(demo_models):
+    """The stored JAX side (``tests/data/torch_stored_demo.npz``) is the
+    JAX package's: its ``panoptic_inference``, run live on the stored
+    mask_cls and mask_pred, gives the stored panoptic map, categories and
+    segment count exactly."""
+    _, stored, _ = demo_models
+    pan = _jax_panoptic(stored["mask_cls"], stored["mask_pred"])
+    assert np.array_equal(np.asarray(pan.panoptic_seg), stored["panoptic_seg"])
+    assert np.array_equal(np.asarray(pan.segment_category), stored["segment_category"])
+    assert int(pan.num_segments) == int(stored["num_segments"])
 
 
 def test_segment_matches_jax_demo(demo_models):
     """One 50x70 uint8 image at ``--image-size`` 64 (resized to 64x90,
     padded to 64x128). The port's resize is cv2's to one level (cv2 weighs
     uint8 pixels in fixed point). From the image the port resized, JAX's
-    demo steps give the same segment count and categories, and panoptic
-    maps that agree on at least 99.5% of the pixels (segment ids up to a
-    permutation; a random TINY model's query masks are near ties, ROADMAP
-    C12). Every label is a thing here: the random queries all pick one
-    label, which as stuff would merge into a single segment."""
+    demo steps (stored) give the same segment count and categories, and
+    panoptic maps that agree on at least 99.5% of the pixels (segment ids
+    up to a permutation; a random TINY model's query masks are near ties,
+    ROADMAP C12). Every label is a thing here: the random queries all pick
+    one label, which as stuff would merge into a single segment."""
     import cv2
-
-    from odise_tpu.models.inference import panoptic_inference as jax_panoptic
-    from odise_tpu.models.wrapper import (OpenPanopticInference as JInfer,
-                                          build_open_vocabulary as jax_vocab)
 
     from odise_torch.demo import segment
     from odise_torch.models.wrapper import build_open_vocabulary
     from odise_torch.verify_parity import panoptic_agreement
 
-    jm, params, pm = demo_models
-    img = (np.random.RandomState(5).rand(50, 70, 3) * 255).astype(np.uint8)
+    inputs, stored, pm = demo_models
+    img = inputs["image"]
     things = np.ones(len(LABELS), bool)
     vocab = build_open_vocabulary(pm, LABELS, thing_mask=things, with_clip_head=True)
     out = segment(pm, vocab, img, image_size=SIZE, overlap_threshold=0.0)
@@ -85,19 +159,12 @@ def test_segment_matches_jax_demo(demo_models):
     resized = cv2.resize(img, (nw, nh))
     assert out.image.shape == (nh, nw, 3) and out.panoptic_seg.shape == (nh, nw)
     assert int(np.abs(out.image.numpy().astype(int) - resized.astype(int)).max()) <= 1
-    resized = out.image.numpy()
-    h64, w64 = -(-nh // 64) * 64, -(-nw // 64) * 64
-    padded = np.zeros((1, h64, w64, 3), np.float32)
-    padded[0, :nh, :nw] = resized.astype(np.float32) / 255.0
-    jvocab = jax_vocab(jm, params, [list(l) for l in LABELS], thing_mask=things,
-                       with_clip_head=True)
-    mask_cls, mask_pred = JInfer(jm, params, jvocab)(jnp.asarray(padded))
-    pan = jax_panoptic(mask_cls[0], mask_pred[0], jnp.asarray(jvocab.thing_mask),
-                       object_mask_threshold=0.0, overlap_threshold=0.0)
-    jseg = np.asarray(pan.panoptic_seg)[:nh, :nw]
-    jn = int(pan.num_segments)
+    # the stored JAX side ran on the port's resized image, padded
+    assert np.array_equal(_padded(img)[0, :nh, :nw], out.image.numpy() / np.float32(255.0))
+    jseg = stored["panoptic_seg"][:nh, :nw]
+    jn = int(stored["num_segments"])
     assert jn >= 2 and out.num_segments == jn
-    assert np.array_equal(out.segment_category.numpy(), np.asarray(pan.segment_category))
+    assert np.array_equal(out.segment_category.numpy(), stored["segment_category"])
     assert panoptic_agreement(out.panoptic_seg.numpy(), jseg) >= 0.995
 
 

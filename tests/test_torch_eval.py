@@ -421,55 +421,96 @@ THING = np.array([True, True, False])
 TRAIN = (("cat",), ("dog",), ("stuff c",))
 
 
+def _two_crop_jax_model():
+    from odise_tpu.model_zoo.factory import build_category_odise as jbuild_model
+
+    return jbuild_model("tiny", train_labels=TRAIN, backbone_in_size=(128, 128))
+
+
+TWO_CROP_CLIP_LABELS = tuple(tuple(g) for g in jbuild.prompt_labels([list(g) for g in VOCAB],
+                                                                     "photo"))
+
+
+def jax_shapes():
+    from odise_tpu.models.odise import CategoryODISE as JCategoryODISE
+
+    jm = _two_crop_jax_model()
+    return jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 3)), jnp.zeros((3, 16)),
+        method=JCategoryODISE.init_full))
+
+
+def stored_inputs(shapes):
+    """The two-crop case's JAX inputs: perturbed parameters on the JAX
+    model's shapes, the 128x192 image and the vocabulary's token ids (the
+    port's tokenizer, one for both packages) with and without prompts."""
+    from odise_torch.models.clip.tokenizer import tokenize
+
+    from .test_torch_towers import perturbed_params
+
+    return dict(params=perturbed_params(shapes, seed=11),
+                img=np.random.RandomState(12).rand(1, 128, 192, 3).astype(np.float32),
+                tokens=tokenize([s for g in VOCAB for s in g]),
+                clip_tokens=tokenize([s for g in TWO_CROP_CLIP_LABELS for s in g]))
+
+
+def _jax_two_crop_vocab(jm, inputs):
+    """JAX's vocabulary from the stored token ids, encoded live."""
+    from odise_tpu.models import wrapper as jwrapper
+    from odise_tpu.models.odise import CategoryODISE as JCategoryODISE
+
+    encode = jax.jit(lambda p, t: jm.apply(p, t, method=JCategoryODISE.encode_vocab))
+    return jwrapper.OpenVocabulary(
+        labels=VOCAB, text_embed_raw=encode(inputs["params"], jnp.asarray(inputs["tokens"])),
+        clip_labels=TWO_CROP_CLIP_LABELS,
+        clip_text_embed=encode(inputs["params"], jnp.asarray(inputs["clip_tokens"])),
+        category_overlap=jnp.asarray([1, 1, 0]), thing_mask=jnp.asarray(THING))
+
+
+def jax_outputs(inputs):
+    """JAX's ``OpenPanopticInference`` on the two-crop image
+    (``tests/torch_stored.py`` keeps its outputs)."""
+    from odise_tpu.models import wrapper as jwrapper
+
+    jm = _two_crop_jax_model()
+    params = jax.tree_util.tree_map(jnp.asarray, inputs["params"])
+    j_cls, j_pred = jwrapper.OpenPanopticInference(jm, params, _jax_two_crop_vocab(
+        jm, inputs))(jnp.asarray(inputs["img"]))
+    return {"mask_cls": np.asarray(j_cls), "mask_pred": np.asarray(j_pred)}
+
+
 def test_open_panoptic_inference_on_a_two_crop_bucket_matches_jax():
     """TINY CategoryODISE on a 128x192 image with a 128x128 backbone window
     (two SD crops, non-square levels for the deformable attention): the
     vocabulary within 1e-5, mask_cls and mask_pred within 1e-4 (float32
-    through the whole model, as in tests/test_torch_model.py)."""
-    from odise_tpu.model_zoo.factory import build_category_odise as jbuild_model
-    from odise_tpu.models import wrapper as jwrapper
-    from odise_tpu.models.odise import CategoryODISE as JCategoryODISE
+    through the whole model, as in tests/test_torch_model.py). The JAX
+    vocabulary is encoded live; JAX's outputs on that vocabulary are
+    stored (``tests/data/torch_stored_eval.npz``, ``tests/torch_stored.py``)."""
     from odise_torch.model_zoo.factory import build_category_odise
     from odise_torch.model_zoo.from_jax import load_flax_params
-    from odise_torch.models.clip.tokenizer import tokenize
     from odise_torch.models.wrapper import OpenPanopticInference, build_open_vocabulary
 
-    from .test_torch_towers import perturbed_params
+    from . import torch_stored
 
-    jm = jbuild_model("tiny", train_labels=TRAIN, backbone_in_size=(128, 128))
-    shapes = jax.eval_shape(lambda: jm.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 3)), jnp.zeros((3, 16)),
-        method=JCategoryODISE.init_full))
-    params = perturbed_params(shapes, seed=11)
+    inputs = stored_inputs(torch_stored.shapes("eval"))
+    stored = torch_stored.load("eval", inputs)
     pm = build_category_odise("tiny", train_labels=TRAIN, device="cpu",
                               backbone_in_size=(128, 128))
-    load_flax_params(pm, params)
+    load_flax_params(pm, inputs["params"])
 
-    # the JAX vocabulary from the port's token ids (one tokenizer for both)
-    encode = jax.jit(lambda p, t: jm.apply(p, t, method=JCategoryODISE.encode_vocab))
-    clip_labels = tuple(tuple(g) for g in jbuild.prompt_labels([list(g) for g in VOCAB],
-                                                               "photo"))
-    jvocab = jwrapper.OpenVocabulary(
-        labels=VOCAB,
-        text_embed_raw=encode(params, jnp.asarray(tokenize([s for g in VOCAB for s in g]))),
-        clip_labels=clip_labels,
-        clip_text_embed=encode(params, jnp.asarray(tokenize([s for g in clip_labels
-                                                             for s in g]))),
-        category_overlap=jnp.asarray([1, 1, 0]), thing_mask=jnp.asarray(THING))
+    jvocab = _jax_two_crop_vocab(_two_crop_jax_model(), inputs)
     pvocab = build_open_vocabulary(pm, VOCAB, thing_mask=THING)
-    assert pvocab.labels == jvocab.labels and pvocab.clip_labels == clip_labels
+    assert pvocab.labels == jvocab.labels and pvocab.clip_labels == TWO_CROP_CLIP_LABELS
     assert pvocab.category_overlap.tolist() == [1, 1, 0]
     assert pvocab.thing_mask.tolist() == THING.tolist()
     for name in ("text_embed_raw", "clip_text_embed"):
         np.testing.assert_allclose(getattr(pvocab, name).numpy(),
                                    np.asarray(getattr(jvocab, name)), rtol=1e-5, atol=1e-5)
 
-    img = np.random.RandomState(12).rand(1, 128, 192, 3).astype(np.float32)
-    j_cls, j_pred = jwrapper.OpenPanopticInference(jm, params, jvocab)(jnp.asarray(img))
-    p_cls, p_pred = OpenPanopticInference(pm, pvocab)(img)
+    p_cls, p_pred = OpenPanopticInference(pm, pvocab)(inputs["img"])
     assert p_cls.shape == (1, 10, 4) and p_pred.shape == (1, 10, 128, 192)
-    np.testing.assert_allclose(p_cls.numpy(), np.asarray(j_cls), rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(p_pred.numpy(), np.asarray(j_pred), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(p_cls.numpy(), stored["mask_cls"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(p_pred.numpy(), stored["mask_pred"], rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------- one eval task

@@ -184,8 +184,10 @@ def model_axis(tmp_path_factory):
 
     inputs = _inputs()
     out = tmp_path_factory.mktemp("mesh")
+    # the two ranks take well under a minute alone: one that never meets
+    # the other fails the test instead of waiting out the group's 30 minutes
     launch(_rank_fn, WORLD, dist_url=f"file://{out}/rendezvous", device="cpu",
-           args=(inputs, str(out)))
+           args=(inputs, str(out)), timeout=300)
     ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
     return ranks, _run(inputs)
 

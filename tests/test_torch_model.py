@@ -2,7 +2,10 @@
 
 * TINY CategoryODISE with the CLIP head in both packages, the same
   perturbed parameters: forward_eval_trunk, forward_eval_head,
-  semantic_inference, and panoptic_inference on identical inputs.
+  semantic_inference, and panoptic_inference on identical inputs. The JAX
+  model's outputs are stored (``tests/torch_stored.py``; its jitted slice
+  compiles for tens of seconds), and ``test_stored_jax_side_is_jax`` runs
+  its head live on them.
 * The FULL model built on the meta device against the shapes of the JAX
   FULL eval model (odise_tpu/model_zoo/bench_manifest.json.gz).
 * The port imports no JAX, and the stored SD noise is JAX's.
@@ -32,6 +35,7 @@ from odise_torch.model_zoo.from_jax import flax_leaf_to_torch, flax_to_torch_nam
 from odise_torch.models import inference  # noqa: E402
 from odise_torch.models.clip.tokenizer import tokenize  # noqa: E402
 
+from . import torch_stored  # noqa: E402
 from .test_torch_towers import perturbed_params  # noqa: E402
 from .torch_threads import one_thread  # noqa: F401,E402
 
@@ -44,45 +48,92 @@ VOCAB = (("cat", "feline"), ("dog",), ("grass",))
 THING = np.array([True, True, False])
 
 
-@pytest.fixture(scope="module")
-def slice_outputs():
-    jm = jax_build("tiny", dtype=jnp.float32, backbone_in_size=(SIZE, SIZE))
-    shapes = jax.eval_shape(lambda: jm.init(
+def _jax_model():
+    return jax_build("tiny", dtype=jnp.float32, backbone_in_size=(SIZE, SIZE))
+
+
+def jax_shapes():
+    jm = _jax_model()
+    return jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)), jnp.zeros((3, 16)),
         method=JCategoryODISE.init_full))
-    params = perturbed_params(shapes, seed=7)
-    pm = build_category_odise("tiny", device="cpu", backbone_in_size=(SIZE, SIZE))
-    from odise_torch.model_zoo.from_jax import load_flax_params
 
-    load_flax_params(pm, params)
 
+def stored_inputs(shapes):
+    """The JAX side's inputs: perturbed parameters on the JAX model's
+    shapes, the image, the vocabulary's token ids with and without the
+    prompt, and the category overlap."""
     rng = np.random.RandomState(8)
-    img = rng.rand(1, SIZE, SIZE, 3).astype(np.float32)
-    tokens = tokenize([s for syns in VOCAB for s in syns])
-    prompted = tokenize([f"a photo of a {syns[0]}" for syns in VOCAB])
-    overlap = np.array([1, 0, 1], np.int32)
-    clip_labels = tuple((s[0],) for s in VOCAB)
+    return dict(params=perturbed_params(shapes, seed=7),
+                img=rng.rand(1, SIZE, SIZE, 3).astype(np.float32),
+                tokens=tokenize([s for syns in VOCAB for s in syns]),
+                prompted=tokenize([f"a photo of a {syns[0]}" for syns in VOCAB]),
+                overlap=np.array([1, 0, 1], np.int32))
+
+
+CLIP_LABELS = tuple((s[0],) for s in VOCAB)
+
+
+def _jax_head(jm, p, trunk, tok, ptok, ovl):
+    text = jm.apply(p, tok, method=JCategoryODISE.encode_vocab)
+    clip_text = jm.apply(p, ptok, method=JCategoryODISE.encode_vocab)
+    head_in = {k: v for k, v in trunk.items() if k != "mask_pred"}
+    return text, jm.apply(p, head_in, text, VOCAB, clip_text, CLIP_LABELS, ovl,
+                          method=JCategoryODISE.forward_eval_head)
+
+
+def jax_outputs(inputs):
+    """The JAX eval slice, jitted: the trunk, the vocabulary's text
+    embeddings and mask_cls (``tests/torch_stored.py`` keeps them)."""
+    jm = _jax_model()
 
     def j_eval(p, x, tok, ptok, ovl):
         trunk = jm.apply(p, x, method=JCategoryODISE.forward_eval_trunk)
-        text = jm.apply(p, tok, method=JCategoryODISE.encode_vocab)
-        clip_text = jm.apply(p, ptok, method=JCategoryODISE.encode_vocab)
-        head_in = {k: v for k, v in trunk.items() if k != "mask_pred"}
-        mask_cls = jm.apply(p, head_in, text, VOCAB, clip_text, clip_labels, ovl,
-                            method=JCategoryODISE.forward_eval_head)
-        return trunk, text, mask_cls
+        return (trunk,) + _jax_head(jm, p, trunk, tok, ptok, ovl)
 
-    j_trunk, j_text, j_cls = jax.jit(j_eval)(
-        params, jnp.asarray(img), jnp.asarray(tokens), jnp.asarray(prompted),
-        jnp.asarray(overlap))
+    trunk, text, cls = jax.jit(j_eval)(*(jax.tree_util.tree_map(jnp.asarray, inputs[k]) for k in (
+        "params", "img", "tokens", "prompted", "overlap")))
+    out = {f"trunk/{k}": np.asarray(v) for k, v in trunk.items()}
+    out.update(text=np.asarray(text), cls=np.asarray(cls))
+    return out
+
+
+@pytest.fixture(scope="module")
+def slice_outputs():
+    from odise_torch.model_zoo.from_jax import load_flax_params
+
+    inputs = stored_inputs(torch_stored.shapes("model"))
+    stored = torch_stored.load("model", inputs)
+    pm = build_category_odise("tiny", device="cpu", backbone_in_size=(SIZE, SIZE))
+    load_flax_params(pm, inputs["params"])
+    img, tokens, prompted, overlap = (inputs[k] for k in ("img", "tokens", "prompted",
+                                                          "overlap"))
     with torch.no_grad():
         p_trunk = pm.forward_eval_trunk(torch.from_numpy(img))
         p_text = pm.encode_vocab(torch.from_numpy(tokens).long())
         p_clip_text = pm.encode_vocab(torch.from_numpy(prompted).long())
         p_cls = pm.forward_eval_head(p_trunk, p_text, VOCAB, p_clip_text,
-                                     clip_labels, torch.from_numpy(overlap))
-    return dict(j_trunk=j_trunk, j_text=j_text, j_cls=np.asarray(j_cls),
+                                     CLIP_LABELS, torch.from_numpy(overlap))
+    return dict(j_trunk={k[len("trunk/"):]: v for k, v in stored.items()
+                         if k.startswith("trunk/")},
+                j_text=stored["text"], j_cls=stored["cls"], inputs=inputs,
                 p_trunk=p_trunk, p_text=p_text, p_cls=p_cls.numpy())
+
+
+def test_stored_jax_side_is_jax(slice_outputs):
+    """The stored JAX side (``tests/data/torch_stored_model.npz``) is the
+    JAX package's: its ``encode_vocab`` and ``forward_eval_head``, run live
+    on the stored trunk outputs, give the stored text embeddings and
+    mask_cls within 1e-5 (the same float32 ops, jitted apart from the
+    trunk)."""
+    inputs = slice_outputs["inputs"]
+    jm = _jax_model()
+    text, cls = jax.jit(lambda p, t, *a: _jax_head(jm, p, t, *a))(
+        *(jax.tree_util.tree_map(jnp.asarray, x) for x in (
+            inputs["params"], slice_outputs["j_trunk"], inputs["tokens"], inputs["prompted"],
+            inputs["overlap"])))
+    np.testing.assert_allclose(np.asarray(text), slice_outputs["j_text"], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(cls), slice_outputs["j_cls"], rtol=1e-5, atol=1e-5)
 
 
 def test_trunk_matches_jax(slice_outputs):
@@ -216,9 +267,17 @@ def test_port_imports_no_jax():
     and eval CLI for one step; the launcher and the collectives' helpers
     at world size 1; register a dataset of PNG files, map one
     record and evaluate one image from its files; and a JPEG read on the
-    CPU fails naming PIL. chip_smoke.py must not import them either."""
+    CPU fails naming PIL. chip_smoke.py must not import them either, and
+    phase 11 (e)'s loader of the stored JAX train step, run first with JAX
+    importable, imports none of jax, jaxlib, flax, optax and odise_tpu."""
     script = textwrap.dedent("""
         import sys
+        from tests import test_torch_full_train as full_train
+        dicts, shas = full_train.train_inputs("tiny")
+        assert "category/relu/keys" in full_train.load_reference("tiny", shas)
+        del dicts
+        assert not [k for k in sys.modules
+                    if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "odise_tpu")]
         for name in ("jax", "jaxlib", "flax", "optax", "odise_tpu", "PIL", "cv2"):
             sys.modules[name] = None
         import importlib, pkgutil

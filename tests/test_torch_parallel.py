@@ -33,6 +33,7 @@ process computes the JAX side, or reads it from a reference file.
 import hashlib
 import json
 import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -50,15 +51,34 @@ WORLD = 2
 EVAL_RECORDS = dict(n=4, size=64, seed=7)
 EVAL_PARAM_SEED = 31
 EVAL_SIZES = dict(short_side=64, max_size=128)
+# seconds a launch of the ranks may take here before they are killed: a
+# rank that never meets the others fails its test instead of waiting out
+# the process group's 30 minutes (each launch takes under a minute alone)
+RANK_TIMEOUT = 300
+
+
+def timed_launches(monkeypatch):
+    """``engine.launch.launch`` (and ``train_net``'s) with ``RANK_TIMEOUT``."""
+    from odise_torch import train_net
+    from odise_torch.engine import launch as launch_module
+
+    plain = launch_module.launch
+
+    def launch(*args, **kwargs):
+        return plain(*args, **dict(dict(timeout=RANK_TIMEOUT), **kwargs))
+
+    monkeypatch.setattr(launch_module, "launch", launch)
+    monkeypatch.setattr(train_net, "launch", launch)
 
 
 # ---------------------------------------------------------------- the ranks
 
 
-def _run_ranks(tmp_path, fn, *args):
+def _run_ranks(tmp_path, fn, *args, timeout=RANK_TIMEOUT):
     """``fn(*args)`` in WORLD gloo ranks on the CPU, each on one intra-op
     thread unless ``fn`` sets others; each returns a value that is saved to
-    a file. Returns the values in rank order."""
+    a file. Returns the values in rank order. Ranks still running after
+    ``timeout`` seconds are killed and ``TimeoutError`` raised."""
     from odise_torch.engine.launch import launch
 
     out = tmp_path / f"ranks_{fn.__name__}"
@@ -69,7 +89,7 @@ def _run_ranks(tmp_path, fn, *args):
     os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
     try:
         launch(_rank_entry, WORLD, dist_url=f"file://{out}/rendezvous", device="cpu",
-               args=(fn, str(out), args))
+               args=(fn, str(out), args), timeout=timeout)
     finally:
         if wait_policy is None:
             del os.environ["OMP_WAIT_POLICY"]
@@ -748,6 +768,7 @@ def test_train_net_on_two_cpu_ranks_and_resume(tmp_path, monkeypatch):
     from odise_torch import train_net
 
     monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the ranks' threads
+    timed_launches(monkeypatch)
     out = tmp_path / "run"
     common = ["--config-file", os.path.join(CONFIGS, "odise_label_tiny_synth.py"),
               "--output", str(out), "--num-gpus", "2", "--max-eval-images", "3"]
@@ -795,6 +816,7 @@ def test_convergence_run_on_two_ranks(monkeypatch):
     from odise_torch.convergence import run_convergence
 
     monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the ranks' threads
+    timed_launches(monkeypatch)
     r = run_convergence(variant="caption", steps=3, batch=2, n_train=4, n_val=2,
                         num_points=32, collect_mode="diff", device="cpu", world_size=2,
                         dataset_name="_conv_two_ranks")
@@ -854,6 +876,23 @@ def test_a_failing_rank_fails_the_launch(tmp_path):
     with pytest.raises(torch.multiprocessing.ProcessRaisedException,
                        match="rank 1 fails|remote worker"):
         _run_ranks(tmp_path, _rank_fails)
+
+
+def _rank_hangs():
+    from odise_torch.parallel import get_rank, sync_global_devices
+
+    if get_rank() == 1:
+        time.sleep(3600)
+    sync_global_devices("never passed")
+
+
+def test_a_hung_rank_times_out(tmp_path):
+    """A rank that never reaches the others: ``launch(timeout=...)``
+    kills both ranks and raises ``TimeoutError`` once the time is up."""
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="2 ranks still running after 3 s"):
+        _run_ranks(tmp_path, _rank_hangs, timeout=3)
+    assert time.monotonic() - t0 < 33
 
 
 if __name__ == "__main__":
