@@ -180,6 +180,17 @@ Phases, each fatal on failure:
      AP), and
      the semantic-PQ tool on the prepared COCO maps against themselves (PQ
      100). No PIL anywhere.
+ 15. the mesh's model axis (``mesh_phase``): two gloo ranks on the card at
+     model=2, each holding half the frozen towers, serve phase 3's request
+     and take phase 8's float32 step against one unsharded process.
+ 16. the host side of the data path (``feeding_phase``), on phase 12's
+     COCO layout: ``train_net`` on the shipped recipe, 1 + 4 steps with the
+     worker loader turned on from the command line at ``worker_count`` 0
+     and 4 (every batch's sha256 equal; each step's ms and ``data_time``
+     and the loader's share of the step, which the card idles through);
+     the val records evaluated at prefetch depths 0 and 2 in turns (every
+     metric equal; ms an image); the host C++ ops against their numpy
+     forms on a 1024x2560 pair (equal; ms each).
 Phase 1 also builds the backward kernel and prints its launch plan, shared
 memory and resident warps; phase 2 also holds it against the plain backward
 run in float64, at the main path's levels on random, out-of-range,
@@ -260,7 +271,7 @@ def build_kernels():
     from odise_torch.ops import _build
     from odise_torch.ops.ms_deform_attn import backward_plan, launch_plan, resident_warps
 
-    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    names = sorted(p.stem for p in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cpp")])
     t0 = time.perf_counter()
     _build.build(names)
     log(f"built {names} in {time.perf_counter() - t0:.1f} s")
@@ -3308,6 +3319,245 @@ def mesh_phase():
                 step_ms=[x["step"]["ms"] for x in ranks])
 
 
+# phase 16: the host side of the data path on phase 12's COCO layout
+FEEDING_STEPS = 5          # the first step apart, then 4
+FEEDING_WORKERS = (0, 4)   # the serial loader, then the reference's 4 workers a card
+# eval prefetch depths, a pass over the val records each: a first pass that
+# meets the bucket's shapes, then 0 and 2 in turns (0, 2, 2, 0)
+FEEDING_DEPTHS = (2, 0, 2, 2, 0)
+FEEDING_PASSES = 3         # the val records repeated, for a steadier ms an image
+HOST_OPS_HW = (1024, 2560)  # the widest shape bucket
+
+
+def batch_digest(batch):
+    """sha256 over a batch's tensors, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        t = batch[k].detach().cpu().contiguous()
+        h.update(f"{k}:{t.dtype}:{tuple(t.shape)}".encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def feeding_train(config, out, workers):
+    """``train_net``'s main on the shipped recipe with the worker loader
+    turned on from the command line at ``workers`` (0: the serial loader's
+    stream); returns the run, its batches' digests and launches."""
+    import multiprocessing
+
+    from odise_torch.data import loader as loader_mod
+
+    real = loader_mod.build_grain_train_loader
+    kept = []
+
+    def recording(*args, **kwargs):  # keeps each batch; hashed after the run
+        for batch in real(*args, **kwargs):
+            kept.append(batch)
+            yield batch
+
+    argv = ["--config-file", config, "--output", out, f"train.max_iter={FEEDING_STEPS}",
+            "train.log_period=1", "train.eval_period=0",
+            "dataloader.train._target_=odise_torch.data.loader.build_grain_train_loader",
+            f"dataloader.train.worker_count={workers}"]
+    loader_mod.build_grain_train_loader = recording
+    try:
+        run, launches, peak, seconds = cli_run(argv, f"worker_count={workers}")
+    finally:
+        loader_mod.build_grain_train_loader = real
+    digests = [batch_digest(b) for b in kept]
+    del kept[:]
+    left = multiprocessing.active_children()
+    if left:
+        raise AssertionError(f"feeding phase: the loader left worker processes {left}")
+    return run, digests, launches, seconds
+
+
+def feeding_eval(model, cfg, records, depth):
+    """The main task of ``do_test`` on ``records`` at prefetch ``depth``:
+    its metrics, launches and nvJPEG decodes."""
+    import os
+
+    from odise_torch import train_net
+    from odise_torch.config import instantiate
+    from odise_torch.data.catalog import MetadataCatalog
+    from odise_torch.data.datasets.register_coco import load_instance_gt_index
+    from odise_torch.data.image_io import decode_jpeg_cuda
+    from odise_torch.evaluation.run import evaluate_open_vocab
+    from odise_torch.models.wrapper import OpenPanopticInference
+
+    wrapper = instantiate(cfg.dataloader.wrapper)
+    meta = MetadataCatalog.get(wrapper["dataset_name"])
+    if not os.path.isfile(meta.get("json_file", "")):
+        raise AssertionError("feeding phase: no instances json")
+    index = load_instance_gt_index(meta.get("json_file"),
+                                   meta.get("thing_dataset_id_to_contiguous_id"))
+    vocab = train_net.build_vocab_and_thing_mask(model, wrapper, model.train_labels)
+    decodes = decode_jpeg_cuda.decodes
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    r = evaluate_open_vocab(
+        OpenPanopticInference(model, vocab), records, labels=vocab.labels,
+        thing_mask=vocab.thing_mask.cpu().numpy(),
+        short_side=cfg.dataloader.get("eval_short_side", 1024),
+        max_size=cfg.dataloader.get("eval_max_size", 2560), inst_gt_index=index,
+        task=f"prefetch_{depth}", prefetch=depth)
+    torch.cuda.synchronize()
+    return r, launch_counts(), decode_jpeg_cuda.decodes - decodes
+
+
+def host_ops_check():
+    """The four host ops against their numpy forms on a 1024x2560 pair of
+    drawn panoptic maps; equal or raises; ms of each (median of 5)."""
+    import statistics
+
+    import numpy as np
+
+    from odise_torch.data.transforms import id2rgb
+    from odise_torch.utils import host_ops
+
+    h, w = HOST_OPS_HW
+    gt, segments, _ = draw_coco_image(np.random.RandomState(16), 1600, h, w)
+    pred, pred_segments, _ = draw_coco_image(np.random.RandomState(61), 1601, h, w)
+    rgb = id2rgb(gt)
+    ids = np.unique(gt, return_inverse=True)[1].reshape(h, w).astype(np.uint32)
+    a, b = gt == segments[3]["id"], pred == pred_segments[3]["id"]
+    cases = {"rgb2id": (host_ops.rgb2id, host_ops.rgb2id_plain, (rgb,)),
+             "pq_intersections": (host_ops.pq_intersections,
+                                  host_ops.pq_intersections_plain, (gt, pred)),
+             "mask_iou": (host_ops.mask_iou, host_ops.mask_iou_plain, (a, b)),
+             "bincount_u32": (host_ops.bincount_u32, host_ops.bincount_u32_plain,
+                              (ids, int(ids.max()) + 1))}
+    out = {}
+    for name, (fn, plain, args) in cases.items():
+        got, want = fn(*args), plain(*args)
+        same = (all(np.array_equal(x, y) and x.dtype == y.dtype for x, y in zip(got, want))
+                if isinstance(got, tuple) else bool(np.array_equal(got, want)))
+        times = {}
+        for label, f in (("ms", fn), ("plain_ms", plain)):
+            ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                f(*args)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            times[label] = statistics.median(ms)
+        out[name] = dict(equal=same, **times)
+        log(f"host op {name} at {h}x{w}: equal to its numpy form {same}; "
+            f"{times['ms']:.3f} ms, numpy {times['plain_ms']:.3f} ms (median of 5)")
+        if not same:
+            raise AssertionError(f"feeding phase: host op {name} differs from its numpy form")
+    return out
+
+
+def feeding_phase():
+    """Phase 16: the host side of the data path at FULL on phase 12's
+    COCO-layout files. (a) ``train_net`` on the shipped recipe, 1 + 4
+    steps with ``dataloader.train.worker_count`` 0 (the serial loader's
+    stream) and 4 (worker processes reading ahead), turned on from the
+    command line: every batch's sha256 equal; each step's ``data_time`` and
+    ms, and the loader's share of a step (with ``log_period`` 1 each step's
+    metrics are read before the next batch is taken, so the card idles
+    while the loader runs). (b) The val records evaluated by the trained
+    model at prefetch depths ``FEEDING_DEPTHS`` (the first pass apart):
+    every metric equal, ms an image, 6 launches an image, the JPEGs decoded
+    by nvJPEG. (c) The host ops against their numpy forms at 1024x2560."""
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    from odise_torch.config import apply_overrides, load_config, resolve
+    from odise_torch.data.catalog import DatasetCatalog
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "output", "chip_smoke_feeding")
+    shutil.rmtree(root, ignore_errors=True)
+    config = os.path.join(here, "odise_torch", "configs", "Panoptic", "odise_label_coco_50e.py")
+    t_phase = time.perf_counter()
+    write_coco_dataset(root)
+    with_dataset_root(root)
+    try:
+        # (a) the worker loader from the command line against the serial one
+        train = {}
+        for workers in FEEDING_WORKERS:
+            run, digests, launches, seconds = feeding_train(
+                config, os.path.join(root, f"run_{workers}"), workers)
+            hist = run.history
+            share = [m["data_time"] / m["time"] for m in hist]
+            train[workers] = dict(history=hist, digests=digests, launches=launches,
+                                  seconds=seconds, step_ms=[m["time"] * 1e3 for m in hist],
+                                  data_ms=[m["data_time"] * 1e3 for m in hist], share=share)
+            if workers != FEEDING_WORKERS[-1]:
+                del run
+                torch.cuda.empty_cache()
+            log(f"worker_count={workers}: steps " + ", ".join(
+                f"{t:.1f} ms (data {d:.1f} ms, share {s:.4f})"
+                for t, d, s in zip(train[workers]["step_ms"], train[workers]["data_ms"], share))
+                + f"; warm median {statistics.median(train[workers]['step_ms'][1:]):.1f} ms, "
+                f"data {statistics.median(train[workers]['data_ms'][1:]):.1f} ms, share "
+                f"{statistics.median(share[1:]):.4f}; launches {launches}")
+            log(f"worker_count={workers}: batch sha256 " + ", ".join(d[:16] for d in digests))
+        w0, w4 = (train[w] for w in FEEDING_WORKERS)
+        faults = [(w0["digests"] != w4["digests"] or len(w0["digests"]) != FEEDING_STEPS,
+                   "the worker loader's batches differ from the serial loader's"),
+                  (any(t["launches"] != (6 * FEEDING_STEPS, 6 * FEEDING_STEPS)
+                       for t in (w0, w4)), "not 6 + 6 launches a step"),
+                  (not all(np.isfinite(m["total_loss"]) for t in (w0, w4)
+                           for m in t["history"]), "non-finite loss")]
+        log(f"the worker loader's {FEEDING_STEPS} batches equal the serial loader's: "
+            f"{w0['digests'] == w4['digests']}; total_loss by step, serial "
+            f"{[m['total_loss'] for m in w0['history']]}, workers "
+            f"{[m['total_loss'] for m in w4['history']]}")
+
+        # (b) evaluation with the next records prepared ahead, and inline
+        cfg = load_config(config)
+        apply_overrides(cfg, [f"train.output_dir={root}"])
+        cfg = resolve(cfg)
+        model = run.model
+        del run
+        records = DatasetCatalog.get("coco_2017_val_panoptic_with_sem_seg") * FEEDING_PASSES
+        evals = []
+        for depth in FEEDING_DEPTHS:
+            r, launches, decodes = feeding_eval(model, cfg, records, depth)
+            evals.append(dict(depth=depth, r=r, launches=launches, decodes=decodes))
+            log(f"eval at prefetch {depth}: {r['s_per_img'] * 1e3:.1f} ms an image over "
+                f"{r['images']} images; PQ {r['PQ']}, mIoU {r['mIoU']}, AP {r['AP']}; "
+                f"launches {launches}, nvJPEG decodes {decodes}")
+        metrics = [{k: v for k, v in e["r"].items() if k != "s_per_img"} for e in evals]
+        faults += [(any(m != metrics[0] for m in metrics),
+                    "the metrics differ between prefetch depths"),
+                   (any(e["launches"] != (6 * len(records), 0) for e in evals),
+                    "not 6 launches an eval image"),
+                   (any(e["decodes"] != len(records) for e in evals),
+                    "not one nvJPEG decode an eval image"),
+                   (metrics[0]["host_fallback_images"] != 0, "host fallbacks")]
+        del model
+        torch.cuda.empty_cache()
+
+        # (c) the host ops
+        ops = host_ops_check()
+    finally:
+        with_dataset_root(None)
+        shutil.rmtree(root, ignore_errors=True)
+    for bad, what in faults:
+        if bad:
+            raise AssertionError(f"feeding phase: {what}")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 16: {seconds:.1f} s")
+    eval_ms = {d: [e["r"]["s_per_img"] * 1e3 for e in evals[1:] if e["depth"] == d]
+               for d in sorted(set(FEEDING_DEPTHS))}
+    log(f"eval ms an image after the first pass, by prefetch depth: {eval_ms}")
+    return dict(seconds=seconds, ops=ops, eval_ms=eval_ms,
+                eval_first_ms=evals[0]["r"]["s_per_img"] * 1e3,
+                launches={f"train_workers_{w}": train[w]["launches"] for w in FEEDING_WORKERS}
+                | {f"eval_prefetch_{e['depth']}_pass_{i}": e["launches"]
+                   for i, e in enumerate(evals)},
+                train={w: {k: train[w][k] for k in ("step_ms", "data_ms", "share", "digests")}
+                       for w in FEEDING_WORKERS})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs an NVIDIA card: torch.cuda.is_available() is false",
@@ -3534,6 +3784,11 @@ def main():
     bwd_errs.append(mesh["bwd_err"])
     phase_done(15)
 
+    # 16. the host side of the data path: worker loader, eval prefetch, host ops
+    torch.cuda.empty_cache()
+    feeding = feeding_phase()
+    phase_done(16)
+
     log(card_line())
     bwd_plan = backward_plan(2, sum(h * w for h, w in SHAPES), HEADS, HEAD_DIM, torch.bfloat16,
                              POINTS)
@@ -3562,6 +3817,7 @@ def main():
         "launches_mesh": {"request_per_rank": [ln[0] for ln in
                                                mesh["launches"]["request_per_rank"]],
                           "step_per_rank": [ln[0] for ln in mesh["launches"]["step_per_rank"]]},
+        "launches_feeding": {k: v[0] for k, v in feeding["launches"].items()},
         "in_place_train_ms": train["fwd_in_place_ms"],
         "bucket_shapes_checked": [SHAPES, WIDE, TALL],
         "largest_bucket": largest}, {
@@ -3589,6 +3845,8 @@ def main():
         "launches_reference_weights": {"train_parity": {
             k: r["launches"][1] for k, r in ref_w["train_parity"].items()}},
         "launches_mesh": {"step_per_rank": [ln[1] for ln in mesh["launches"]["step_per_rank"]]},
+        "launches_feeding": {k: v[1] for k, v in feeding["launches"].items()
+                             if k.startswith("train")},
         "launches_parallel": {"step_per_rank": {k: [ln[1] for ln in v["launches"]]
                                                 for k, v in par["steps"].items()},
                               "train_net_per_rank": [c["launches"][1] for c in par["cli"]]}}]}),

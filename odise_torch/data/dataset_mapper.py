@@ -10,6 +10,14 @@ and ``pan_seg_file_name``, an RGB PNG read by ``read_rgb_png`` and
 the mapper's device, and the targets are built there: per segment a binary
 mask, padded to ``max_instances`` with a validity flag, as the JAX mapper
 pads them.
+
+A record is mapped in two stages, ``augment(record, read(record), rng)``:
+``read`` does the deterministic host work (file bytes, PNG decoding,
+``rgb2id``) and touches no device, so a worker process can run it ahead of
+the step (``loader.build_grain_train_loader``); ``augment`` draws from
+``rng`` and runs on the device, in order on the consuming thread. On a
+CUDA device a JPEG is decoded there, on a side stream (one a device in the
+process) that the current stream then waits for.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import torch
 
 from ..model_zoo.factory import resolve_device
 from ..models.clip.tokenizer import tokenize
-from .image_io import read_image, read_rgb_png
+from .image_io import EncodedJpeg, image_to_device, load_image, read_rgb_png
 from .transforms import AugInput, FixedSizeCrop, RandomFlip, ResizeScale, rgb2id
 
 __all__ = ["COCOPanopticDatasetMapper", "collate", "default_lsj_augmentations"]
@@ -63,17 +71,32 @@ class COCOPanopticDatasetMapper:
     def __call__(self, record: Dict, rng: Optional[np.random.RandomState] = None) -> Dict:
         """``rng`` draws the augmentations and caption words (default: a
         fresh one from ``seed``, as in the JAX mapper)."""
-        rng = rng or np.random.RandomState(self.seed)
-        dev = self.device
+        return self.augment(record, self.read(record), rng)
+
+    def read(self, record: Dict) -> Dict:
+        """The record's host reads, which draw nothing and touch no device:
+        ``image`` (pixels, or a JPEG's ``EncodedJpeg`` bytes) and
+        ``pan_seg`` (segment ids, or None)."""
         if "image" in record:
-            image = torch.as_tensor(np.asarray(record["image"]), device=dev)
+            image = np.asarray(record["image"])
         else:
-            image = read_image(record["file_name"], dev)
+            image = load_image(record["file_name"])
         pan_seg = None
         if "pan_seg" in record:
             pan_seg = np.asarray(record["pan_seg"])
         elif "pan_seg_file_name" in record:
             pan_seg = rgb2id(read_rgb_png(record["pan_seg_file_name"]))
+        return {"image": image, "pan_seg": pan_seg}
+
+    def augment(self, record: Dict, read: Dict,
+                rng: Optional[np.random.RandomState] = None) -> Dict:
+        """Map ``record`` from its ``read`` result: the augmentations, the
+        targets and the caption words, drawn from ``rng`` (default: a fresh
+        one from ``seed``)."""
+        rng = rng or np.random.RandomState(self.seed)
+        dev = self.device
+        image = self._image_to_device(read["image"])
+        pan_seg = read["pan_seg"]
         if pan_seg is not None:
             pan_seg = torch.as_tensor(pan_seg.astype(np.int64), device=dev)
         ai = AugInput(image=image, pan_seg=pan_seg)
@@ -116,6 +139,27 @@ class COCOPanopticDatasetMapper:
                                                  device=dev)
             out["word_valid"] = torch.tensor([bool(w) for w in chosen], device=dev)
         return out
+
+    def _image_to_device(self, image) -> torch.Tensor:
+        dev = self.device
+        if not (isinstance(image, EncodedJpeg) and dev.type == "cuda"):
+            return image_to_device(image, dev)
+        # nvJPEG on a side stream: the decode does not queue behind the
+        # steps still on the current stream
+        side = _side_streams.get(dev)
+        if side is None:
+            side = _side_streams.setdefault(dev, torch.cuda.Stream(dev))
+        current = torch.cuda.current_stream(dev)
+        with torch.cuda.stream(side):
+            out = image_to_device(image, dev)
+        current.wait_stream(side)
+        out.record_stream(current)
+        return out
+
+
+# device -> the stream the mappers of this process decode JPEGs on (not held
+# by the mapper, which is pickled to the loader's worker processes)
+_side_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 def collate(samples: Sequence[Dict]) -> Dict[str, torch.Tensor]:

@@ -13,11 +13,15 @@ name:
   16 bit and RGB 8 bit, either byte order (the 16-bit label files of
   Pascal Context 459 and ADE20K-847).
 * JPEG: on a CUDA device with nvJPEG (``csrc/jpeg_decode.cu``) into a tensor
-  on the card; on the CPU through PIL, imported inside the call.
+  on the card; on the CPU through PIL, imported inside the call. Any thread
+  may decode: each has its own nvJPEG state.
 
 Each reader gives what PIL gives: ``read_label`` is ``np.asarray(Image.open(p))``
 (palette indices for a palette PNG, uint16 for a 16-bit file);
 ``read_rgb_png`` and ``read_image`` are ``Image.open(p).convert("RGB")``.
+``read_image`` is ``image_to_device(load_image(p), device)``: ``load_image``
+does the host's share, which needs no device (a PNG or TIFF decoded, a
+JPEG's bytes read), so that a worker process can run it ahead of the step.
 ``write_png`` writes what the synthetic datasets, the dataset scripts
 (``odise_torch/prepare``) and ``chip_smoke.py`` need; ``write_tiff`` the
 16-bit gray label files.
@@ -28,15 +32,17 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import io
 import struct
+import threading
 import zlib
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
-__all__ = ["decode_jpeg_cuda", "decode_png", "decode_tiff", "read_image", "read_label",
-           "read_rgb_png", "write_png", "write_tiff"]
+__all__ = ["EncodedJpeg", "decode_jpeg_cuda", "decode_png", "decode_tiff", "image_to_device",
+           "load_image", "read_image", "read_label", "read_rgb_png", "write_png", "write_tiff"]
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -381,30 +387,53 @@ def read_rgb_png(path) -> np.ndarray:
     return _to_rgb(_decode(_read(path), path))
 
 
+@dataclasses.dataclass(frozen=True)
+class EncodedJpeg:
+    """A JPEG file's bytes, not yet decoded (``load_image``'s result for a
+    JPEG: it is decoded where its device is)."""
+
+    data: bytes
+    path: str
+
+
+def load_image(path) -> Union[np.ndarray, EncodedJpeg]:
+    """The host's share of ``read_image``, which touches no device: a PNG or
+    TIFF as RGB uint8 [H, W, 3], a JPEG as its ``EncodedJpeg`` bytes."""
+    data = _read(path)
+    if data[:3] == JPEG_SIGNATURE:
+        return EncodedJpeg(data, str(path))
+    if data[:8] == PNG_SIGNATURE or data[:4] in TIFF_SIGNATURES:
+        return _to_rgb(_decode(data, path))
+    raise ValueError(f"{path}: not a JPEG, PNG or TIFF file")
+
+
+def image_to_device(image: Union[np.ndarray, EncodedJpeg], device) -> torch.Tensor:
+    """``load_image``'s result as RGB uint8 [H, W, 3] on ``device``: a JPEG
+    is decoded by nvJPEG on a CUDA device (on the current stream) and by
+    PIL on the CPU."""
+    if isinstance(image, EncodedJpeg):
+        if device.type == "cuda":
+            return decode_jpeg_cuda(image.data, device)
+        return torch.from_numpy(_decode_jpeg_pil(image))
+    return torch.as_tensor(image, device=device)
+
+
 def read_image(path, device=None) -> torch.Tensor:
     """An image file as RGB uint8 [H, W, 3] on ``device`` (default CUDA),
     as ``Image.open(path).convert("RGB")``. A JPEG is decoded by nvJPEG on a
     CUDA device and by PIL on the CPU; PNG and TIFF by this module."""
     from ..model_zoo.factory import resolve_device
 
-    device = resolve_device(device)
-    data = _read(path)
-    if data[:3] == JPEG_SIGNATURE:
-        if device.type == "cuda":
-            return decode_jpeg_cuda(data, device)
-        return torch.from_numpy(_decode_jpeg_pil(path))
-    if data[:8] == PNG_SIGNATURE or data[:4] in TIFF_SIGNATURES:
-        return torch.from_numpy(_to_rgb(_decode(data, path))).to(device)
-    raise ValueError(f"{path}: not a JPEG, PNG or TIFF file")
+    return image_to_device(load_image(path), resolve_device(device))
 
 
-def _decode_jpeg_pil(path) -> np.ndarray:
+def _decode_jpeg_pil(image: EncodedJpeg) -> np.ndarray:
     try:
         from PIL import Image
     except ImportError as err:
-        raise ImportError(f"{path}: a JPEG on the CPU is decoded by PIL (Pillow), which is "
-                          "not installed; on a CUDA device nvJPEG decodes it") from err
-    with Image.open(path) as im:
+        raise ImportError(f"{image.path}: a JPEG on the CPU is decoded by PIL (Pillow), which "
+                          "is not installed; on a CUDA device nvJPEG decodes it") from err
+    with Image.open(io.BytesIO(image.data)) as im:
         return np.array(im.convert("RGB"))
 
 
@@ -438,21 +467,26 @@ def _nvjpeg_error(what: str, status: int) -> RuntimeError:
     return RuntimeError(f"nvJPEG {what} failed: {name}")
 
 
+_decodes_lock = threading.Lock()
+
+
 def decode_jpeg_cuda(data: bytes, device) -> torch.Tensor:
     """A JPEG's bytes -> RGB uint8 [H, W, 3] on the CUDA ``device``, decoded
-    by nvJPEG on the current stream; each decode is counted in
-    ``decode_jpeg_cuda.decodes``. All decodes of a process go to the device
-    of its first (``decode_jpeg_cuda.device``)."""
+    by nvJPEG on the current stream with the calling thread's decoder state;
+    each decode is counted in ``decode_jpeg_cuda.decodes``. All decodes of a
+    process go to the device of its first (``decode_jpeg_cuda.device``)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"nvJPEG decodes onto a CUDA device, not {device}")
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    # the first decode creates the process's one nvJPEG handle and state, on
-    # its device; they serve no other
-    owner = decode_jpeg_cuda.device
-    if owner is not None and owner != device:
-        raise ValueError(f"nvJPEG's state in this process lives on {owner}, not {device}")
+    # the first decode creates the process's one nvJPEG handle, on its
+    # device; it serves no other
+    with _decodes_lock:
+        owner = decode_jpeg_cuda.device
+        if owner is not None and owner != device:
+            raise ValueError(f"nvJPEG's handle in this process lives on {owner}, not {device}")
+        decode_jpeg_cuda.device = device
     w, h, comps, subsampling = (ctypes.c_int() for _ in range(4))
     with torch.cuda.device(device):
         status = _jpeg_lib().jpeg_image_info(data, len(data), ctypes.byref(w),
@@ -466,8 +500,8 @@ def decode_jpeg_cuda(data: bytes, device) -> torch.Tensor:
                                               torch.cuda.current_stream().cuda_stream)
     if status:
         raise _nvjpeg_error("decoding", status)
-    decode_jpeg_cuda.device = device
-    decode_jpeg_cuda.decodes += 1
+    with _decodes_lock:
+        decode_jpeg_cuda.decodes += 1
     return out
 
 

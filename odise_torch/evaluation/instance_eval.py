@@ -16,6 +16,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..utils import host_ops
+
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
 AREA_RNG = {
@@ -27,10 +29,8 @@ AREA_RNG = {
 
 
 def mask_iou(pred: np.ndarray, gt: np.ndarray) -> float:
-    """Pairwise IoU of two bool masks."""
-    inter = np.logical_and(pred, gt).sum()
-    union = np.logical_or(pred, gt).sum()
-    return float(inter / union) if union else 0.0
+    """Pairwise IoU of two bool masks (the host C++ op, as JAX's native)."""
+    return host_ops.mask_iou(pred, gt)
 
 
 class InstanceSegEvaluator:

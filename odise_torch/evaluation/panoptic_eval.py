@@ -1,9 +1,11 @@
 """Panoptic Quality (PQ) evaluation (counterpart of
 ``odise_tpu/evaluation/panoptic_eval.py``, numpy).
 
-The JAX package counts gt x pred pixel pairs with a host C++ helper
-(``odise_tpu/native``) when it is built and numpy otherwise; the port keeps
-the numpy form only. The PQ definition (Kirillov et al.):
+The gt x pred pixel pairs are counted by the host C++ op
+``utils/host_ops.pq_intersections``, as the JAX package counts them with
+``odise_tpu/native`` (the port has no numpy fallback: its build raises if it
+fails; the pairs come sorted, as numpy's ``unique`` gives them). The PQ
+definition (Kirillov et al.):
 segments match iff IoU > 0.5 (computed excluding void pixels);
 PQ = sum(IoU of TPs) / (|TP| + |FP|/2 + |FN|/2), per category, averaged.
 """
@@ -15,6 +17,8 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..utils.host_ops import pq_intersections
 
 VOID = 0
 
@@ -166,16 +170,6 @@ def _pq_stats_core(
             continue
         stat.per_cat[s["category_id"]].fp += 1
     return stat
-
-
-def pq_intersections(gt: np.ndarray, pred: np.ndarray
-                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Distinct (gt_id, pred_id) pairs and their intersection areas."""
-    combined = (np.asarray(gt, np.uint32).astype(np.uint64) * (2 ** 32)
-                + np.asarray(pred, np.uint32).astype(np.uint64))
-    pairs, counts = np.unique(combined, return_counts=True)
-    return ((pairs >> np.uint64(32)).astype(np.uint32),
-            (pairs & np.uint64(0xFFFFFFFF)).astype(np.uint32), counts)
 
 
 class PanopticEvaluator:

@@ -13,12 +13,17 @@ port's counterpart of JAX's ``ShardedOpenPanopticInference``, which spreads
 one process's images over its devices.
 
 Per record: resize the shorter side, pad to a multiple of 64 and then into
-its shape bucket, run the model, and score it. With ``device_stats`` the
-scores come from sufficient statistics computed where the model's outputs
-lie (``DeviceEvalRunner``); an image that does not fit that path (larger
-than every grid, too many gt segments or instances) and every image without
-``device_stats`` takes the host path, which fuses at bucket resolution and
-resizes the result to the original size. Host-path images are counted in
+its shape bucket, run the model, and score it. The records are prepared
+(``prep_record``: decode, resize, pad, ground-truth rasters) ``prefetch``
+records ahead of the model in a worker thread (``utils/prefetch.py``), as
+``tools/train_net.py`` prefetches them; on a CUDA device that thread
+decodes on a stream of its own, so that its decodes and copies do not wait
+behind the model's work. The metrics do not depend on ``prefetch``. With
+``device_stats`` the scores come from sufficient statistics computed where
+the model's outputs lie (``DeviceEvalRunner``); an image that does not fit
+that path (larger than every grid, too many gt segments or instances) and
+every image without ``device_stats`` takes the host path, which fuses at
+bucket resolution and resizes the result to the original size. Host-path images are counted in
 ``host_fallback_images`` and logged.
 
 Records hold ``image`` [H, W, 3] uint8 and optionally ``sem_seg`` [H, W]
@@ -35,8 +40,11 @@ gt.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 import os
+import threading
 import time
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -51,6 +59,7 @@ from ..data.transforms import (AugInput, ResizeShortestEdge, resize_bilinear,
 from ..models.inference import (instance_inference, panoptic_inference,
                                 semantic_inference)
 from ..parallel.multihost import gather_pickled, get_data_rank, get_data_world_size
+from ..utils.prefetch import prefetch_iter
 from .buckets import compute_eval_buckets, pick_bucket
 from .device_eval import DeviceEvalRunner
 from .evaluator import print_csv_format
@@ -119,6 +128,31 @@ def prep_record(rec: dict, resize: ResizeShortestEdge, buckets, thing_mask: np.n
                 inst_gt_crowd=inst_gt_crowd)
 
 
+def _in_prefetch_thread(prep, device):
+    """``prep`` as the prefetch thread runs it: in inference mode and, on a
+    CUDA ``device`` (None: the default, CUDA), on a stream of that thread's
+    own. Without CUDA a record that needs the card raises in ``prep``."""
+    cuda = torch.device("cuda" if device is None else device)
+    if cuda.type != "cuda" or not torch.cuda.is_available():
+        cuda = None
+    elif cuda.index is None:
+        cuda = torch.device("cuda", torch.cuda.current_device())
+    local = threading.local()
+
+    def run(rec):
+        if cuda is None:
+            with torch.inference_mode():
+                return prep(rec)
+        stream = getattr(local, "stream", None)
+        if stream is None:
+            torch.cuda.set_device(cuda)
+            stream = local.stream = torch.cuda.Stream(cuda)
+        with torch.inference_mode(), torch.cuda.stream(stream):
+            return prep(rec)
+
+    return run
+
+
 @torch.inference_mode()
 def evaluate_open_vocab(infer, records: Iterable[dict], *,
                         labels: Sequence[Sequence[str]], thing_mask,
@@ -127,7 +161,8 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
                         panoptic_on: bool = True, instance_on: bool = True,
                         ignore_label: int = IGNORE_LABEL,
                         inst_gt_index: Optional[Dict[int, List[dict]]] = None,
-                        task: str = "main", across_ranks: bool = False) -> Dict[str, float]:
+                        task: str = "main", across_ranks: bool = False,
+                        prefetch: int = 2) -> Dict[str, float]:
     """Evaluate ``infer`` (images [1, H, W, 3] -> (mask_cls, mask_pred), with
     the fusion settings on ``infer.model``) over ``records`` against a
     vocabulary of ``labels`` with a [K] bool ``thing_mask``. Returns the
@@ -138,7 +173,8 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
     ``load_ade_instance_gt_index``'s) is the instance gt of records without
     ``annotations``. Image files are decoded on
     ``infer.device``. ``across_ranks`` shares the records out over the ranks
-    and merges their statistics (see the module's docstring)."""
+    and merges their statistics (see the module's docstring). ``prefetch``
+    records are prepared ahead in a worker thread (0: inline)."""
     model = infer.model
     device = getattr(infer, "device", None)
     obj_thr = float(model.object_mask_threshold)
@@ -166,94 +202,99 @@ def evaluate_open_vocab(infer, records: Iterable[dict], *,
                                panoptic_on=panoptic_on, instance_on=instance_on)
               if device_stats else None)
 
+    prep = functools.partial(prep_record, resize=resize, buckets=buckets,
+                             thing_mask=thing_np, semantic_on=semantic_on,
+                             panoptic_on=panoptic_on, instance_on=instance_on, device=device,
+                             inst_gt_index=inst_gt_index)
+    if prefetch > 0:
+        prep = _in_prefetch_thread(prep, device)
     t_start = time.perf_counter()
     n = n_fallback = 0
-    for rec in records:
-        p = prep_record(rec, resize, buckets, thing_np, semantic_on, panoptic_on,
-                        instance_on, device, inst_gt_index)
-        mask_cls, mask_pred = infer(p["padded"])
-        mask_cls, mask_pred = mask_cls[0], mask_pred[0]
-        h, w, oh, ow = p["h"], p["w"], p["oh"], p["ow"]
-        sem_gt, gt_ids, gt_segments = p["sem_gt"], p["gt_ids"], p["gt_segments"]
-        inst_gt_masks = p["inst_gt_masks"]
-        inst_gt_classes, inst_gt_crowd = p["inst_gt_classes"], p["inst_gt_crowd"]
+    with contextlib.closing(prefetch_iter(records, prep, depth=prefetch)) as prepared:
+        for p in prepared:
+            mask_cls, mask_pred = infer(p["padded"])
+            mask_cls, mask_pred = mask_cls[0], mask_pred[0]
+            h, w, oh, ow = p["h"], p["w"], p["oh"], p["ow"]
+            sem_gt, gt_ids, gt_segments = p["sem_gt"], p["gt_ids"], p["gt_segments"]
+            inst_gt_masks = p["inst_gt_masks"]
+            inst_gt_classes, inst_gt_crowd = p["inst_gt_classes"], p["inst_gt_crowd"]
 
-        # ---- statistics on the outputs' device ----
-        stats = None
-        if runner is not None:
-            dev_sem = sem_gt if sem_gt is not None and sem_gt.shape == (oh, ow) else None
-            dev_pan = gt_ids if gt_ids is not None and gt_ids.shape == (oh, ow) else None
-            dev_inst = (inst_gt_masks if inst_gt_masks is not None
-                        and len(inst_gt_masks) <= 128 else None)
-            if dev_sem is not None or dev_pan is not None or dev_inst is not None:
-                stats = runner.process(
-                    mask_cls, mask_pred, (h, w), (oh, ow), sem_gt=dev_sem,
-                    pan_gt_ids=dev_pan,
-                    pan_seg_ids=(np.asarray([s["id"] for s in gt_segments], np.uint32)
-                                 if dev_pan is not None else None),
-                    inst_gt_masks=dev_inst)
-        sem_done = pan_done = inst_done = False
-        if stats is not None:
-            if "pan_counts" in stats:
-                segs_by_id = {int(s["id"]): s for s in gt_segments}
-                gt_sorted = [segs_by_id[int(i)] for i in stats["pan_gt_ids_sorted"]]
-                nseg = stats["pan_num_segments"]
-                cats = stats["pan_segment_category"]
-                things = stats["pan_segment_isthing"]
-                pred_segments = [{"category_id": int(cats[i]), "isthing": bool(things[i])}
-                                 for i in range(nseg)]
-                pan_ev.process_counts(stats["pan_counts"][:, : nseg + 1], gt_sorted,
-                                      pred_segments)
-            if "inst_inter" in stats:
-                keeps = stats["inst_scores"] > 0  # drop stuff-flagged rows
-                inst_ev.process_from_counts(
-                    stats["inst_scores"][keeps], stats["inst_classes"][keeps],
-                    stats["inst_dt_area"][keeps], stats["inst_inter"][keeps],
-                    inst_gt_classes, stats["inst_gt_area"], inst_gt_crowd)
-            sem_done = dev_sem is not None
-            pan_done = dev_pan is not None
-            inst_done = dev_inst is not None
-
-        # ---- host path: fuse at bucket resolution, resize to the original ----
-        valid_hw = (h, w)
-        if sem_gt is not None and not sem_done:
-            sem = semantic_inference(mask_cls, mask_pred)[:, :h, :w]
-            # resize probabilities before the argmax
-            sem_r = resize_bilinear(sem, sem_gt.shape[0], sem_gt.shape[1])
-            sem_ev.process(sem_r.argmax(dim=0).int().cpu().numpy(), sem_gt)
-        if panoptic_on and gt_ids is not None and not pan_done:
-            pan = panoptic_inference(mask_cls, mask_pred, thing_t,
-                                     object_mask_threshold=obj_thr,
-                                     overlap_threshold=ovl_thr, valid_hw=valid_hw)
-            pan_seg = resize_nearest(pan.panoptic_seg[:h, :w], oh, ow)
-            nseg = int(pan.num_segments)
-            cats = pan.segment_category.cpu().numpy()
-            things = pan.segment_isthing.cpu().numpy()
-            pred_segments = [{"id": i + 1, "category_id": int(cats[i]),
-                              "isthing": bool(things[i])} for i in range(nseg)]
-            pan_ev.process(gt_ids, gt_segments, pan_seg.cpu().numpy().astype(np.uint32),
-                           pred_segments)
-        if inst_gt_masks is not None and not inst_done:
-            inst = instance_inference(mask_cls, mask_pred, thing_t,
-                                      topk=topk, valid_hw=valid_hw)
-            masks = resize_nearest(inst.masks[:, :h, :w], oh, ow).cpu().numpy()
-            scores = inst.scores.cpu().numpy()
-            keeps = scores > 0  # drop stuff-flagged rows
-            # always processed: detections on an image without thing gt
-            # count as false positives
-            inst_ev.process(masks[keeps], inst.classes.cpu().numpy()[keeps],
-                            scores[keeps], inst_gt_masks, inst_gt_classes,
-                            inst_gt_crowd)
-        if ((sem_gt is not None and not sem_done)
-                or (panoptic_on and gt_ids is not None and not pan_done)
-                or (inst_gt_masks is not None and not inst_done)):
-            n_fallback += 1
+            # ---- statistics on the outputs' device ----
+            stats = None
             if runner is not None:
-                logger.info("Image %d used the host eval path (oh=%d ow=%d, "
-                            "gt_segments=%d, gt_instances=%d)", n, oh, ow,
-                            len(gt_segments or ()), len(inst_gt_masks)
-                            if inst_gt_masks is not None else 0)
-        n += 1
+                dev_sem = sem_gt if sem_gt is not None and sem_gt.shape == (oh, ow) else None
+                dev_pan = gt_ids if gt_ids is not None and gt_ids.shape == (oh, ow) else None
+                dev_inst = (inst_gt_masks if inst_gt_masks is not None
+                            and len(inst_gt_masks) <= 128 else None)
+                if dev_sem is not None or dev_pan is not None or dev_inst is not None:
+                    stats = runner.process(
+                        mask_cls, mask_pred, (h, w), (oh, ow), sem_gt=dev_sem,
+                        pan_gt_ids=dev_pan,
+                        pan_seg_ids=(np.asarray([s["id"] for s in gt_segments], np.uint32)
+                                     if dev_pan is not None else None),
+                        inst_gt_masks=dev_inst)
+            sem_done = pan_done = inst_done = False
+            if stats is not None:
+                if "pan_counts" in stats:
+                    segs_by_id = {int(s["id"]): s for s in gt_segments}
+                    gt_sorted = [segs_by_id[int(i)] for i in stats["pan_gt_ids_sorted"]]
+                    nseg = stats["pan_num_segments"]
+                    cats = stats["pan_segment_category"]
+                    things = stats["pan_segment_isthing"]
+                    pred_segments = [{"category_id": int(cats[i]), "isthing": bool(things[i])}
+                                     for i in range(nseg)]
+                    pan_ev.process_counts(stats["pan_counts"][:, : nseg + 1], gt_sorted,
+                                          pred_segments)
+                if "inst_inter" in stats:
+                    keeps = stats["inst_scores"] > 0  # drop stuff-flagged rows
+                    inst_ev.process_from_counts(
+                        stats["inst_scores"][keeps], stats["inst_classes"][keeps],
+                        stats["inst_dt_area"][keeps], stats["inst_inter"][keeps],
+                        inst_gt_classes, stats["inst_gt_area"], inst_gt_crowd)
+                sem_done = dev_sem is not None
+                pan_done = dev_pan is not None
+                inst_done = dev_inst is not None
+
+            # ---- host path: fuse at bucket resolution, resize to the original ----
+            valid_hw = (h, w)
+            if sem_gt is not None and not sem_done:
+                sem = semantic_inference(mask_cls, mask_pred)[:, :h, :w]
+                # resize probabilities before the argmax
+                sem_r = resize_bilinear(sem, sem_gt.shape[0], sem_gt.shape[1])
+                sem_ev.process(sem_r.argmax(dim=0).int().cpu().numpy(), sem_gt)
+            if panoptic_on and gt_ids is not None and not pan_done:
+                pan = panoptic_inference(mask_cls, mask_pred, thing_t,
+                                         object_mask_threshold=obj_thr,
+                                         overlap_threshold=ovl_thr, valid_hw=valid_hw)
+                pan_seg = resize_nearest(pan.panoptic_seg[:h, :w], oh, ow)
+                nseg = int(pan.num_segments)
+                cats = pan.segment_category.cpu().numpy()
+                things = pan.segment_isthing.cpu().numpy()
+                pred_segments = [{"id": i + 1, "category_id": int(cats[i]),
+                                  "isthing": bool(things[i])} for i in range(nseg)]
+                pan_ev.process(gt_ids, gt_segments, pan_seg.cpu().numpy().astype(np.uint32),
+                               pred_segments)
+            if inst_gt_masks is not None and not inst_done:
+                inst = instance_inference(mask_cls, mask_pred, thing_t,
+                                          topk=topk, valid_hw=valid_hw)
+                masks = resize_nearest(inst.masks[:, :h, :w], oh, ow).cpu().numpy()
+                scores = inst.scores.cpu().numpy()
+                keeps = scores > 0  # drop stuff-flagged rows
+                # always processed: detections on an image without thing gt
+                # count as false positives
+                inst_ev.process(masks[keeps], inst.classes.cpu().numpy()[keeps],
+                                scores[keeps], inst_gt_masks, inst_gt_classes,
+                                inst_gt_crowd)
+            if ((sem_gt is not None and not sem_done)
+                    or (panoptic_on and gt_ids is not None and not pan_done)
+                    or (inst_gt_masks is not None and not inst_done)):
+                n_fallback += 1
+                if runner is not None:
+                    logger.info("Image %d used the host eval path (oh=%d ow=%d, "
+                                "gt_segments=%d, gt_instances=%d)", n, oh, ow,
+                                len(gt_segments or ()), len(inst_gt_masks)
+                                if inst_gt_masks is not None else 0)
+            n += 1
     dt = time.perf_counter() - t_start
     if runner is not None:
         sem_ev.add_confusion(runner.flush_confusion())

@@ -1,13 +1,15 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled for
-``sm_90a`` into ``odise_torch/_build/lib<name>_<hash>.so`` at first use; the
-hash covers the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. ``jpeg_decode.cu`` also links nvJPEG,
-found in the CUDA toolkit or in the ``nvidia`` wheels beside torch
-(``nvjpeg_flags``). nvcc's output, with ptxas's registers and
-spills for each kernel, is kept beside the library (``build_log``). Nothing
-is built when this module is imported.
+Each ``csrc/<name>.cu`` or ``csrc/<name>.cpp`` exposes a plain C interface.
+A ``.cu`` is compiled by nvcc for ``sm_90a``, a ``.cpp`` (host code) by the
+host's C++ compiler (``$CXX``, else ``g++``, else ``c++``), into
+``odise_torch/_build/lib<name>_<hash>.so`` at first use; the hash covers the
+source and the flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is. A build that fails raises with the compiler's output.
+``jpeg_decode.cu`` also links nvJPEG, found in the CUDA toolkit or in the
+``nvidia`` wheels beside torch (``nvjpeg_flags``). nvcc's output, with
+ptxas's registers and spills for each kernel, is kept beside the library
+(``build_log``). Nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# host code runs on whichever machine loads it: no -march=native
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -68,7 +72,15 @@ def nvjpeg_flags() -> Tuple[str, ...]:
 LINK_FLAGS = {"jpeg_decode": nvjpeg_flags}
 
 
+def source(name: str) -> Path:
+    """``csrc/<name>.cu``, else ``csrc/<name>.cpp``."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
 def flags(name: str) -> Tuple[str, ...]:
+    if source(name).suffix == ".cpp":
+        return HOST_FLAGS
     extra = LINK_FLAGS.get(name)
     return NVCC_FLAGS + (extra() if extra else ())
 
@@ -81,8 +93,21 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def _host_compiler() -> str:
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler ($CXX, g++ or c++) found: the port's host ops "
+                       "(csrc/*.cpp) are built with one")
+
+
+def _compiler(name: str) -> str:
+    return _host_compiler() if source(name).suffix == ".cpp" else _nvcc()
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    src = source(name)
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
@@ -92,8 +117,9 @@ def build_log(name: str) -> Path:
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:
-    """Compile every named source that is not built yet, one nvcc process
-    for each, all started together. Returns name -> shared library path."""
+    """Compile every named source that is not built yet, one compiler
+    process for each, all started together. Returns name -> shared library
+    path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {n: library_path(n) for n in names}
     procs = []
@@ -102,7 +128,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_compiler(name), *flags(name), "-o", tmp, str(source(name))]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
@@ -110,7 +136,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            errors.append(f"{Path(proc.args[0]).name} failed for {source(name).name}:\n{log}")
         else:
             so.with_suffix(".log").write_text(log)
             os.replace(tmp, so)  # atomic: a reader never sees half a library
@@ -120,7 +146,8 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu`` or ``.cpp``; cached per
+    process."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))

@@ -336,8 +336,12 @@ def do_train(args, cfg) -> TrainRun:
     trainer = Trainer(step_fn, batches(),
                       torch.Generator(device=device).manual_seed(cfg.train.seed + 1),
                       hooks=hooks, log_period=cfg.train.log_period)
-    with WriterStack(writers):
-        trainer.train(start_iter, cfg.train.max_iter)
+    try:
+        with WriterStack(writers):
+            trainer.train(start_iter, cfg.train.max_iter)
+    finally:
+        if hasattr(train_loader, "close"):  # a worker loader's processes exit
+            train_loader.close()
     sync_global_devices("train_end")  # rank 0's last checkpoint is written
     return TrainRun(cfg=cfg, model=model, optimizer=opt, start_iter=start_iter,
                     start_count=start_count, history=trainer.metrics_history,

@@ -636,6 +636,79 @@ def test_nvjpeg_matches_pil(cuda, case):
 
 
 @pytest.mark.cuda
+def test_nvjpeg_decodes_from_threads(cuda):
+    """More threads than cores decode the JPEG fixtures at once, half on
+    streams of their own and half on the default stream (each thread has
+    its own nvJPEG state, and waits for its last decode before it moves to
+    another stream): every decode bitwise equal to one thread's, and no
+    decode lost from the count. The thread switch interval is shortened to
+    mix the threads' Python between decodes."""
+    import os
+    import sys
+    import threading
+
+    from odise_torch.data.image_io import decode_jpeg_cuda
+
+    from .torch_jpeg_fixtures import load
+
+    cases = [data for data, _ in load()[0].values()]
+    want = [decode_jpeg_cuda(data, "cuda").cpu() for data in cases]
+    n_threads, rounds = 2 * (os.cpu_count() or 4), 5
+    bad, errors = [], []
+
+    def work(k):
+        try:
+            stream = torch.cuda.Stream() if k % 2 else torch.cuda.default_stream()
+            for r in range(rounds):
+                for i, data in enumerate(cases):
+                    with torch.cuda.stream(stream if r % 2 else torch.cuda.default_stream()):
+                        got = decode_jpeg_cuda(data, "cuda")
+                        torch.cuda.current_stream().synchronize()
+                    if not torch.equal(got.cpu(), want[i]):
+                        bad.append((k, r, i))
+        except Exception as err:  # reported below, with the thread's number
+            errors.append((k, repr(err)))
+
+    before = decode_jpeg_cuda.decodes
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and not bad, (errors, bad[:5])
+    assert decode_jpeg_cuda.decodes - before == n_threads * rounds * len(cases)
+
+
+@pytest.mark.cuda
+def test_mapper_decodes_jpeg_on_its_side_stream(cuda, tmp_path):
+    """The training mapper's JPEG, decoded on its side stream after the
+    current stream has queued work, equals ``read_image``'s decode, and the
+    augmentations read it after the decode."""
+    from odise_torch.data.dataset_mapper import COCOPanopticDatasetMapper
+    from odise_torch.data.image_io import read_image
+
+    from .torch_jpeg_fixtures import load
+
+    data, _ = load()[0]["demo/coco"]
+    path = tmp_path / "a.jpg"
+    path.write_bytes(data)
+    mapper = COCOPanopticDatasetMapper(image_size=512, max_instances=4, is_train=False,
+                                       device="cuda")
+    busy = torch.randn(4096, 4096, device="cuda")
+    for _ in range(20):  # queue work on the current stream before the decode
+        busy = busy @ busy / 64
+    out = mapper({"file_name": str(path)})
+    want = read_image(path, "cuda").float() / 255.0
+    assert torch.equal(out["image"], want)
+
+
+@pytest.mark.cuda
 def test_read_image_dispatches_on_the_signature(cuda, tmp_path):
     """On the card a JPEG goes to nvJPEG whatever its name, and a PNG is
     decoded on the host and moved to the card, equal to the CPU's read."""

@@ -261,7 +261,8 @@ def test_port_imports_no_jax():
     """With jax, flax, odise_tpu, PIL and cv2 unimportable (the card's
     machine has neither image library): import every odise_torch module,
     build TINY CategoryODISE on the CPU and run forward_eval, evaluate it on
-    one in-memory synthetic record, build TINY CaptionODISE, take one TINY
+    one in-memory synthetic record (prefetched) and count PQ's pixel pairs
+    with the host C++ op, build TINY CaptionODISE, take one TINY
     CategoryODISE train step (mapper, loader, partition, optimizer,
     Trainer), load every file of the port's config tree and run the train
     and eval CLI for one step; the launcher and the collectives' helpers
@@ -307,6 +308,9 @@ def test_port_imports_no_jax():
         r = evaluate_open_vocab(infer, make_shapes_records(1, size=48), labels=SYNTH_LABELS,
                                 thing_mask=SYNTH_THING, short_side=64, max_size=160)
         assert r["images"] == 1 and r["host_fallback_images"] == 0
+        from odise_torch.utils import host_ops
+        assert [a.tolist() for a in host_ops.pq_intersections([[1, 2]], [[1, 1]])] == [
+            [1, 2], [1, 1], [1, 1]]
         caption = build_caption_odise("tiny", device="cpu")
         assert type(caption).__name__ == "CaptionODISE"
         from odise_torch.data.dataset_mapper import COCOPanopticDatasetMapper
