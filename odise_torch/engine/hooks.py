@@ -10,8 +10,7 @@ iteration instead of at the end of its log window.
 
 from __future__ import annotations
 
-import time
-from typing import Callable, Optional
+from typing import Callable
 
 
 class EvalHook:
@@ -62,22 +61,6 @@ class PeriodicCheckpointer:
             name = ("model_final" if next_iter == self.max_iter
                     else f"model_{iteration:07d}")
             self.checkpointer.save(name, self.params, self.optimizer, next_iter)
-
-
-class IterationTimer:
-    """Host time between two calls into ``metrics["time"]``. The port's
-    ``Trainer`` calls hooks at each flush, one call per pending iteration,
-    and already puts the window's time per step into ``time``; this timer
-    measures steps where hooks see every one (``log_period=1``)."""
-
-    def __init__(self):
-        self._last: Optional[float] = None
-
-    def __call__(self, iteration: int, metrics) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            metrics["time"] = now - self._last
-        self._last = now
 
 
 class PeriodicWriter:

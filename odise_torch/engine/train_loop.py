@@ -36,6 +36,7 @@ from ..losses.grounding import GroundingConfig
 from ..parallel.mesh import FROZEN_TOWER_KEYWORDS, is_frozen_path
 from ..parallel.multihost import (all_reduce_mean_, all_reduce_sum, gather_pickled,
                                   get_world_size)
+from ..utils.tracing import span
 from .optimizer import clip_by_global_norm_, global_norm
 
 __all__ = ["FROZEN_TOWER_KEYWORDS", "Trainer", "check_finite", "is_frozen_path",
@@ -141,10 +142,11 @@ def _make_step(model, optimizer, loss_fn, grad_clip: float, accum_steps: int):
             mean = torch.stack([metrics[k].float().reshape(()) for k in keys])
             all_reduce_mean_(grads + [mean])
             metrics = dict(zip(keys, mean.unbind()))
-        gnorm = global_norm(grads)
-        if grad_clip:
-            clip_by_global_norm_(grads, grad_clip, gnorm)
-        optimizer.step()
+        with span("odise.optimizer"):
+            gnorm = global_norm(grads)
+            if grad_clip:
+                clip_by_global_norm_(grads, grad_clip, gnorm)
+            optimizer.step()
         metrics["grad_norm"] = gnorm
         metrics["clipped_grad_norm"] = torch.clamp(gnorm, max=grad_clip)
         metrics["loss_scale"] = torch.ones((), device=gnorm.device)
@@ -232,15 +234,17 @@ class Trainer:
         pending: list = []  # (iteration, data time, device-side metrics)
         window_t0 = time.perf_counter()
         for it in range(start_iter, max_iter):
-            t0 = time.perf_counter()
-            batch = next(self.data_iter)
-            data_time = time.perf_counter() - t0
-            metrics = self.step_fn(batch, self.generator)
-            pending.append((it, data_time, metrics))
-            if (len(pending) >= self.log_period or it == max_iter - 1
-                    or any(h.due(it) for h in self.hooks if hasattr(h, "due"))):
-                self._flush(pending, window_t0)
-                window_t0 = time.perf_counter()
+            with span("odise.step", it):
+                with span("odise.data_wait"):
+                    t0 = time.perf_counter()
+                    batch = next(self.data_iter)
+                    data_time = time.perf_counter() - t0
+                metrics = self.step_fn(batch, self.generator)
+                pending.append((it, data_time, metrics))
+                if (len(pending) >= self.log_period or it == max_iter - 1
+                        or any(h.due(it) for h in self.hooks if hasattr(h, "due"))):
+                    self._flush(pending, window_t0)
+                    window_t0 = time.perf_counter()
 
     def _flush(self, pending: list, window_t0: float) -> None:
         # one transfer of every pending scalar: a single host sync

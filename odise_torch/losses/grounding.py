@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..models.helper import l2_normalize
 from ..parallel.multihost import all_gather_rows, get_data_rank, get_data_world_size
+from ..utils.tracing import bracket, span
 
 __all__ = ["GroundingConfig", "mask_grounding_criterion"]
 
@@ -85,11 +86,13 @@ def mask_grounding_criterion(outputs: Dict, word_valid_mask: torch.Tensor,
                              ) -> Dict[str, torch.Tensor]:
     """outputs: mask_embed, word_embed, logit_scale and aux_outputs;
     word_valid_mask [B, K] bool."""
-    losses = dict(_one_layer_loss(outputs, word_valid_mask, cfg))
-    if cfg.deep_supervision and "aux_outputs" in outputs:
-        for i, aux in enumerate(outputs["aux_outputs"]):
-            aux = dict(aux)
-            aux.setdefault("word_embed", outputs["word_embed"])
-            ld = _one_layer_loss(aux, word_valid_mask, cfg)
-            losses.update({f"{k}_{i}": v for k, v in ld.items()})
-    return losses
+    with span("odise.grounding"):
+        outputs, bwd = bracket("odise.grounding", outputs)
+        losses = dict(_one_layer_loss(outputs, word_valid_mask, cfg))
+        if cfg.deep_supervision and "aux_outputs" in outputs:
+            for i, aux in enumerate(outputs["aux_outputs"]):
+                aux = dict(aux)
+                aux.setdefault("word_embed", outputs["word_embed"])
+                ld = _one_layer_loss(aux, word_valid_mask, cfg)
+                losses.update({f"{k}_{i}": v for k, v in ld.items()})
+        return bwd(losses)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from . import matcher
 from ..ops.grid_sample import point_sample_binary, sample_nchw
 from ..parallel.multihost import all_reduce_sum, get_data_world_size
+from ..utils.tracing import bracket, span
 
 __all__ = ["CriterionConfig", "get_uncertain_point_coords_with_randomness",
            "set_criterion"]
@@ -139,38 +140,41 @@ def set_criterion(outputs: Dict, targets: Dict[str, torch.Tensor],
     DDP-equivalent count); over several ranks it is the count of every
     rank's rows, which each rank divides by the world size.
     """
-    layers = [outputs] + (list(outputs.get("aux_outputs", []))
-                          if cfg.deep_supervision else [])
-    # every layer's costs first, then ONE auction over every (layer, image)
-    costs = [matcher.match_cost_matrix(
-        l["pred_logits"].detach().float(), l["pred_masks"].detach().float(),
-        targets["labels"], targets["masks"], targets["valid"],
-        num_points=cfg.num_points, cost_class=cfg.class_weight,
-        cost_mask=cfg.mask_weight, cost_dice=cfg.dice_weight,
-        generator=generator, layer=i) for i, l in enumerate(layers)]
-    B = costs[0].shape[0]
-    matched_all = matcher.assign_from_cost(torch.cat(costs, dim=0))
-    matched = [matched_all[i * B:(i + 1) * B] for i in range(len(layers))]
-    count = targets["valid"].float().sum()
-    world = get_data_world_size()
-    class_weight_sums = [None] * len(layers)
-    if world > 1:
-        # the union batch's target count and class-weight sums, one collective
-        Q = layers[0]["pred_logits"].shape[1]
-        sums = all_reduce_sum(torch.stack(
-            [count] + [_class_targets(Q, targets, m, cfg)[1].sum() for m in matched]))
-        count, class_weight_sums = sums[0], list(sums[1:] / world)
-    if num_masks_override is not None:
-        num_masks = num_masks_override / world
-    else:
-        num_masks = torch.clamp(count, min=1.0) / world
-    losses: Dict[str, torch.Tensor] = {}
-    for i, layer_out in enumerate(layers):
-        ld = _one_layer_losses(
-            layer_out["pred_logits"].float(), layer_out["pred_masks"].float(),
-            targets, matched[i], cfg, num_masks, class_weight_sums[i], generator, i)
-        if i == 0:
-            losses.update(ld)
+    with span("odise.criterion"):
+        outputs, bwd = bracket("odise.criterion", outputs)
+        layers = [outputs] + (list(outputs.get("aux_outputs", []))
+                              if cfg.deep_supervision else [])
+        # every layer's costs first, then ONE auction over every (layer, image)
+        with span("odise.matcher"):
+            costs = [matcher.match_cost_matrix(
+                l["pred_logits"].detach().float(), l["pred_masks"].detach().float(),
+                targets["labels"], targets["masks"], targets["valid"],
+                num_points=cfg.num_points, cost_class=cfg.class_weight,
+                cost_mask=cfg.mask_weight, cost_dice=cfg.dice_weight,
+                generator=generator, layer=i) for i, l in enumerate(layers)]
+            B = costs[0].shape[0]
+            matched_all = matcher.assign_from_cost(torch.cat(costs, dim=0))
+        matched = [matched_all[i * B:(i + 1) * B] for i in range(len(layers))]
+        count = targets["valid"].float().sum()
+        world = get_data_world_size()
+        class_weight_sums = [None] * len(layers)
+        if world > 1:
+            # the union batch's target count and class-weight sums, one collective
+            Q = layers[0]["pred_logits"].shape[1]
+            sums = all_reduce_sum(torch.stack(
+                [count] + [_class_targets(Q, targets, m, cfg)[1].sum() for m in matched]))
+            count, class_weight_sums = sums[0], list(sums[1:] / world)
+        if num_masks_override is not None:
+            num_masks = num_masks_override / world
         else:
-            losses.update({f"{k}_{i - 1}": v for k, v in ld.items()})
-    return losses
+            num_masks = torch.clamp(count, min=1.0) / world
+        losses: Dict[str, torch.Tensor] = {}
+        for i, layer_out in enumerate(layers):
+            ld = _one_layer_losses(
+                layer_out["pred_logits"].float(), layer_out["pred_masks"].float(),
+                targets, matched[i], cfg, num_masks, class_weight_sums[i], generator, i)
+            if i == 0:
+                losses.update(ld)
+            else:
+                losses.update({f"{k}_{i - 1}": v for k, v in ld.items()})
+        return bwd(losses)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...diffusion import GaussianDiffusion, get_named_beta_schedule
+from ...utils.tracing import bracket, span
 from ..clip.adapter import clip_preprocess
 from ..clip.model import TextTransformer, VisionTransformer
 from ..clip.tokenizer import tokenize
@@ -320,6 +321,12 @@ class FeatureExtractorBackbone(nn.Module):
                               use_reentrant=False)
         return self._project(input_size, *features)
 
+    def _serial_crop(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One crop of the serial training slide; its span replays in the
+        checkpoint's recompute."""
+        with span("odise.backbone.crop"):
+            return self.single_forward(img, True)
+
     def _project(self, input_size, *features) -> Dict[str, torch.Tensor]:
         names, strides, groups = self._grouping()
         out = {}
@@ -341,6 +348,11 @@ class FeatureExtractorBackbone(nn.Module):
         training with ``slide_training`` crops the backbone's input size
         and, with ``slide_serial``, runs one checkpointed crop at a time;
         training without ``slide_training`` takes the image whole."""
+        with span("odise.backbone"):
+            img, bwd = bracket("odise.backbone", img)
+            return bwd(self._slide(img, training))
+
+    def _slide(self, img: torch.Tensor, training: bool) -> Dict[str, torch.Tensor]:
         if training and not self.slide_training:
             return self.single_forward(img, training)
         B, _, h_img, w_img = img.shape
@@ -360,10 +372,10 @@ class FeatureExtractorBackbone(nn.Module):
             for (y1, x1) in boxes:
                 crop_img = img[:, :, y1:y1 + crop, x1:x1 + crop]
                 if torch.is_grad_enabled():
-                    per_crop.append(checkpoint(self.single_forward, crop_img, True,
+                    per_crop.append(checkpoint(self._serial_crop, crop_img,
                                                use_reentrant=False))
                 else:
-                    per_crop.append(self.single_forward(crop_img, True))
+                    per_crop.append(self._serial_crop(crop_img))
             crop_feats = {k: torch.cat([f[k] for f in per_crop], dim=0)
                           for k in per_crop[0]}
         else:

@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.ms_deform_attn import ms_deform_attn
+from ...utils.tracing import span
 from ..modules import Conv, Dense, GroupNorm, LayerNorm, param
 from ..resize import resize
 from .layers import position_embedding_sine
@@ -140,47 +141,48 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.mask_features = Conv(conv_dim, mask_dim, 3, padding=1, dtype=dtype)
 
     def forward(self, features: Dict[str, torch.Tensor]):
-        srcs, poss, shapes = [], [], []
-        for i, name in enumerate(self.tif):
-            x = getattr(self, f"input_proj_{i}")(features[name])
-            x = _gn(getattr(self, f"input_proj_norm_{i}"), x)
-            B, C, H, W = x.shape
-            pos = position_embedding_sine(H, W, self.conv_dim // 2,
-                                          dtype=x.dtype, device=x.device)
-            srcs.append(x.flatten(2).transpose(1, 2)
-                        + self.level_embed[i].to(x.dtype))
-            poss.append(pos.reshape(1, H * W, C).expand(B, H * W, C))
-            shapes.append((H, W))
-        src = torch.cat(srcs, dim=1)
-        pos = torch.cat(poss, dim=1)
+        with span("odise.pixel_decoder"):
+            srcs, poss, shapes = [], [], []
+            for i, name in enumerate(self.tif):
+                x = getattr(self, f"input_proj_{i}")(features[name])
+                x = _gn(getattr(self, f"input_proj_norm_{i}"), x)
+                B, C, H, W = x.shape
+                pos = position_embedding_sine(H, W, self.conv_dim // 2,
+                                              dtype=x.dtype, device=x.device)
+                srcs.append(x.flatten(2).transpose(1, 2)
+                            + self.level_embed[i].to(x.dtype))
+                poss.append(pos.reshape(1, H * W, C).expand(B, H * W, C))
+                shapes.append((H, W))
+            src = torch.cat(srcs, dim=1)
+            pos = torch.cat(poss, dim=1)
 
-        ref_list = []
-        for (H, W) in shapes:
-            ys = (torch.arange(H, dtype=torch.float32, device=src.device) + 0.5) / H
-            xs = (torch.arange(W, dtype=torch.float32, device=src.device) + 0.5) / W
-            yy, xx = torch.meshgrid(ys, xs, indexing="ij")
-            ref_list.append(torch.stack([xx, yy], -1).reshape(H * W, 2))
-        ref = torch.cat(ref_list, dim=0)
-        B = src.shape[0]
-        reference_points = ref[None, :, None, :].expand(B, ref.shape[0],
-                                                        len(shapes), 2)
+            ref_list = []
+            for (H, W) in shapes:
+                ys = (torch.arange(H, dtype=torch.float32, device=src.device) + 0.5) / H
+                xs = (torch.arange(W, dtype=torch.float32, device=src.device) + 0.5) / W
+                yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+                ref_list.append(torch.stack([xx, yy], -1).reshape(H * W, 2))
+            ref = torch.cat(ref_list, dim=0)
+            B = src.shape[0]
+            reference_points = ref[None, :, None, :].expand(B, ref.shape[0],
+                                                            len(shapes), 2)
 
-        for li in range(self.enc_layers):
-            src = getattr(self, f"encoder_layer_{li}")(
-                src, pos, reference_points, shapes)
+            for li in range(self.enc_layers):
+                src = getattr(self, f"encoder_layer_{li}")(
+                    src, pos, reference_points, shapes)
 
-        outs, offset = [], 0
-        for (H, W) in shapes:
-            outs.append(src[:, offset:offset + H * W].transpose(1, 2)
-                        .reshape(B, self.conv_dim, H, W))
-            offset += H * W
+            outs, offset = [], 0
+            for (H, W) in shapes:
+                outs.append(src[:, offset:offset + H * W].transpose(1, 2)
+                            .reshape(B, self.conv_dim, H, W))
+                offset += H * W
 
-        y = outs[-1]  # finest encoder output (stride 8)
-        for j, name in enumerate(self.fpn_names):
-            x = features[name]
-            lateral = _gn(getattr(self, f"lateral_norm_{j}"),
-                          getattr(self, f"lateral_{j}")(x))
-            y = lateral + resize(y, x.shape[-2:], "bilinear")
-            y = getattr(self, f"output_conv_{j}")(y)
-            y = F.relu(_gn(getattr(self, f"output_norm_{j}"), y))
-        return self.mask_features(y), outs[: self.num_feature_levels]
+            y = outs[-1]  # finest encoder output (stride 8)
+            for j, name in enumerate(self.fpn_names):
+                x = features[name]
+                lateral = _gn(getattr(self, f"lateral_norm_{j}"),
+                              getattr(self, f"lateral_{j}")(x))
+                y = lateral + resize(y, x.shape[-2:], "bilinear")
+                y = getattr(self, f"output_conv_{j}")(y)
+                y = F.relu(_gn(getattr(self, f"output_norm_{j}"), y))
+            return self.mask_features(y), outs[: self.num_feature_levels]

@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils.tracing import bracket, span
 from ..helper import mask_pooling
 from ..modules import Dense, LayerNorm, add_modules, param
 from ..resize import resize
@@ -179,50 +180,51 @@ class ODISEMultiScaleMaskedTransformerDecoder(nn.Module):
 
     def forward(self, x: Sequence[torch.Tensor], mask_features: torch.Tensor,
                 training: bool = False):
-        if len(x) != self.num_feature_levels:
-            raise ValueError(f"{len(x)} feature levels, expected "
-                             f"{self.num_feature_levels}")
-        B = x[0].shape[0]
-        srcs, poss, sizes = [], [], []
-        for i, feat in enumerate(x):
-            _, C, H, W = feat.shape
-            sizes.append((H, W))
-            pos = position_embedding_sine(H, W, self.hidden_dim // 2,
-                                          dtype=feat.dtype, device=feat.device)
-            poss.append(pos.reshape(1, H * W, -1).expand(B, H * W, self.hidden_dim))
-            f = feat.flatten(2).transpose(1, 2)
-            if self.input_proj is not None:
-                f = self.input_proj[i](f)
-            srcs.append(f + self.level_embed[i].to(f.dtype))
-        dtype = srcs[0].dtype
-        output = self.query_feat[None].expand(B, -1, -1).to(dtype)
-        query_pos = self.query_embed[None].expand(B, -1, -1).to(dtype)
-        if training:
-            return self._forward_train(output, query_pos, srcs, poss, sizes,
-                                       mask_features)
-        mf_small = [resize(mask_features, hw, "bilinear") for hw in sizes]
+        with span("odise.mask_decoder"):
+            if len(x) != self.num_feature_levels:
+                raise ValueError(f"{len(x)} feature levels, expected "
+                                 f"{self.num_feature_levels}")
+            B = x[0].shape[0]
+            srcs, poss, sizes = [], [], []
+            for i, feat in enumerate(x):
+                _, C, H, W = feat.shape
+                sizes.append((H, W))
+                pos = position_embedding_sine(H, W, self.hidden_dim // 2,
+                                              dtype=feat.dtype, device=feat.device)
+                poss.append(pos.reshape(1, H * W, -1).expand(B, H * W, self.hidden_dim))
+                f = feat.flatten(2).transpose(1, 2)
+                if self.input_proj is not None:
+                    f = self.input_proj[i](f)
+                srcs.append(f + self.level_embed[i].to(f.dtype))
+            dtype = srcs[0].dtype
+            output = self.query_feat[None].expand(B, -1, -1).to(dtype)
+            query_pos = self.query_embed[None].expand(B, -1, -1).to(dtype)
+            if training:
+                return self._forward_train(output, query_pos, srcs, poss, sizes,
+                                           mask_features)
+            mf_small = [resize(mask_features, hw, "bilinear") for hw in sizes]
 
-        attn_mask = self._fast_attn_mask(output, mf_small[0])
-        for i in range(self.dec_layers):
-            li = i % self.num_feature_levels
-            output = self.cross[i](output, srcs[li], attn_mask, poss[li], query_pos)
-            output = self.self_[i](output, query_pos)
-            output = self.ffn[i](output)
-            if i < self.dec_layers - 1:
-                attn_mask = self._fast_attn_mask(
-                    output, mf_small[(i + 1) % self.num_feature_levels])
+            attn_mask = self._fast_attn_mask(output, mf_small[0])
+            for i in range(self.dec_layers):
+                li = i % self.num_feature_levels
+                output = self.cross[i](output, srcs[li], attn_mask, poss[li], query_pos)
+                output = self.self_[i](output, query_pos)
+                output = self.ffn[i](output)
+                if i < self.dec_layers - 1:
+                    attn_mask = self._fast_attn_mask(
+                        output, mf_small[(i + 1) % self.num_feature_levels])
 
-        # prediction heads, once, on the last layer's output
-        x_n = self.decoder_norm(output).to(output.dtype)
-        outputs_class = self.class_embed(x_n)
-        mask_embed = self.mask_embed_mlp(x_n)
-        outputs_mask = torch.einsum("bqc,bchw->bqhw", mask_embed, mask_features)
-        out = {"pred_logits": outputs_class, "pred_masks": outputs_mask,
-               "aux_outputs": []}
-        if self.post_mask_embed is not None:
-            out.update(self.post_mask_embed(x_n, mask_embed, mask_features,
-                                            outputs_class, outputs_mask))
-        return out
+            # prediction heads, once, on the last layer's output
+            x_n = self.decoder_norm(output).to(output.dtype)
+            outputs_class = self.class_embed(x_n)
+            mask_embed = self.mask_embed_mlp(x_n)
+            outputs_mask = torch.einsum("bqc,bchw->bqhw", mask_embed, mask_features)
+            out = {"pred_logits": outputs_class, "pred_masks": outputs_mask,
+                   "aux_outputs": []}
+            if self.post_mask_embed is not None:
+                out.update(self.post_mask_embed(x_n, mask_embed, mask_features,
+                                                outputs_class, outputs_mask))
+            return out
 
     def _forward_train(self, output, query_pos, srcs, poss, sizes, mask_features):
         L = self.num_feature_levels
@@ -251,6 +253,8 @@ class MaskFormerHead(nn.Module):
         self.transformer_predictor = transformer_predictor
 
     def forward(self, features: Dict[str, torch.Tensor], training: bool = False):
-        mask_features, multi_scale_features = self.pixel_decoder(features)
-        return self.transformer_predictor(multi_scale_features, mask_features,
-                                          training=training)
+        with span("odise.sem_seg_head"):
+            features, bwd = bracket("odise.sem_seg_head", features)
+            mask_features, multi_scale_features = self.pixel_decoder(features)
+            return bwd(self.transformer_predictor(multi_scale_features, mask_features,
+                                                  training=training))

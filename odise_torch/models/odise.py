@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..utils.tracing import span
 from .clip.adapter import build_mask_reader_mask, clip_preprocess
 from .clip.model import TextTransformer, VisionTransformer
 from .helper import ensemble_logits_with_labels, l2_normalize
@@ -89,30 +90,32 @@ class PoolingCLIPHead(nn.Module):
         """images [B, 3, H, W] in [0, 1]; masks [B, Q, h, w] logits ->
         [B, Q, embed_dim] float32."""
         S = self.clip_image_size
-        img = clip_preprocess(resize(images, (S, S), "bilinear"), S).to(self.dtype)
-        m = resize(masks, (S, S), "bilinear")
-        reader_mask = build_mask_reader_mask(m, self.patch_size,
-                                             (S // self.patch_size) ** 2)
-        return self.clip_visual(img, mask_tokens=masks.shape[1],
-                                reader_mask=reader_mask)
+        with span("odise.clip_head"):
+            img = clip_preprocess(resize(images, (S, S), "bilinear"), S).to(self.dtype)
+            m = resize(masks, (S, S), "bilinear")
+            reader_mask = build_mask_reader_mask(m, self.patch_size,
+                                                 (S // self.patch_size) ** 2)
+            return self.clip_visual(img, mask_tokens=masks.shape[1],
+                                    reader_mask=reader_mask)
 
     def ensemble(self, mask_embed, pred_open_logits, text_embed,
                  labels: Labels, category_overlapping_mask) -> torch.Tensor:
         """Cosine MaskCLIP logits, then the alpha/beta seen/novel geometric
         ensemble with ``pred_open_logits``. Returns [B, Q, K] float32."""
-        me = l2_normalize(mask_embed)
-        te = l2_normalize(text_embed).to(me.dtype)
-        scale = torch.clamp(torch.exp(self.logit_scale), max=100.0)
-        clip_logits = ensemble_logits_with_labels(
-            scale * torch.einsum("bqc,kc->bqk", me, te), labels, "max")
-        ovl = category_overlapping_mask.float()
-        p = torch.softmax(pred_open_logits.float(), dim=-1)
-        q = torch.softmax(clip_logits.float(), dim=-1)
-        base = torch.log(torch.clamp(p ** (1 - self.alpha) * q ** self.alpha,
-                                     min=1e-9)) * ovl
-        novel = torch.log(torch.clamp(p ** (1 - self.beta) * q ** self.beta,
-                                      min=1e-9)) * (1.0 - ovl)
-        return base + novel
+        with span("odise.clip_head"):
+            me = l2_normalize(mask_embed)
+            te = l2_normalize(text_embed).to(me.dtype)
+            scale = torch.clamp(torch.exp(self.logit_scale), max=100.0)
+            clip_logits = ensemble_logits_with_labels(
+                scale * torch.einsum("bqc,kc->bqk", me, te), labels, "max")
+            ovl = category_overlapping_mask.float()
+            p = torch.softmax(pred_open_logits.float(), dim=-1)
+            q = torch.softmax(clip_logits.float(), dim=-1)
+            base = torch.log(torch.clamp(p ** (1 - self.alpha) * q ** self.alpha,
+                                         min=1e-9)) * ovl
+            novel = torch.log(torch.clamp(p ** (1 - self.beta) * q ** self.beta,
+                                          min=1e-9)) * (1.0 - ovl)
+            return base + novel
 
 
 class CLIPOpenClassEmbed(nn.Module):
@@ -212,8 +215,9 @@ class _EvalODISE(nn.Module):
         mask_pred = outputs["pred_masks"]
         if self.clip_head is not None:
             trunk["clip_mask_embed"] = self.clip_head.get_mask_embed(x, mask_pred)
-        trunk["mask_pred"] = resize(mask_pred.float(), images.shape[1:3],
-                                    "bilinear")
+        with span("odise.mask_upsample"):
+            trunk["mask_pred"] = resize(mask_pred.float(), images.shape[1:3],
+                                        "bilinear")
         return trunk, outputs
 
     def forward_eval(self, images, text_embed_raw, labels: Labels,
@@ -273,19 +277,20 @@ class CategoryODISE(_EvalODISE):
                           category_overlap: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
         """Vocabulary-dependent tail -> mask_cls [B, Q, K+1]."""
-        cat = self.category_head(text_embed_raw)
-        mask_cls = cal_pred_logits(trunk["mask_embed"], cat["text_embed"],
-                                   cat["null_embed"], trunk["logit_scale"],
-                                   labels)
-        if self.clip_head is not None and clip_text_embed is not None:
-            open_logits = self.clip_head.ensemble(
-                trunk["clip_mask_embed"], mask_cls[..., :-1], clip_text_embed,
-                clip_labels, category_overlap)
-            bg_prob = torch.softmax(mask_cls.float(), dim=-1)[..., -1:]
-            class_probs = torch.softmax(open_logits, dim=-1)
-            mask_cls = torch.log(torch.cat([class_probs * (1.0 - bg_prob),
-                                            bg_prob], dim=-1) + 1e-8)
-        return mask_cls
+        with span("odise.vocab_head"):
+            cat = self.category_head(text_embed_raw)
+            mask_cls = cal_pred_logits(trunk["mask_embed"], cat["text_embed"],
+                                       cat["null_embed"], trunk["logit_scale"],
+                                       labels)
+            if self.clip_head is not None and clip_text_embed is not None:
+                open_logits = self.clip_head.ensemble(
+                    trunk["clip_mask_embed"], mask_cls[..., :-1], clip_text_embed,
+                    clip_labels, category_overlap)
+                bg_prob = torch.softmax(mask_cls.float(), dim=-1)[..., -1:]
+                class_probs = torch.softmax(open_logits, dim=-1)
+                mask_cls = torch.log(torch.cat([class_probs * (1.0 - bg_prob),
+                                                bg_prob], dim=-1) + 1e-8)
+            return mask_cls
 
 
 class CaptionODISE(_EvalODISE):
@@ -305,7 +310,8 @@ class CaptionODISE(_EvalODISE):
     def encode_words(self, word_tokens: torch.Tensor) -> torch.Tensor:
         """[B, K, 77] -> [B, K, D] raw CLIP embeds of caption words."""
         B, K, L = word_tokens.shape
-        return self.encode_vocab(word_tokens.reshape(B * K, L)).reshape(B, K, -1)
+        with span("odise.text_tower"):
+            return self.encode_vocab(word_tokens.reshape(B * K, L)).reshape(B, K, -1)
 
     def forward_train(self, images: torch.Tensor, word_tokens: torch.Tensor) -> Dict:
         """Training outputs: the decoder's outputs (binary pred_logits) and
@@ -334,16 +340,17 @@ class CaptionODISE(_EvalODISE):
                           ) -> torch.Tensor:
         """Vocabulary-dependent tail -> mask_cls [B, Q, K+1], softmaxes in
         float32."""
-        word_embed = self.word_head(text_embed_raw[None])["word_embed"][0]
-        open_logits = trunk["logit_scale"] * torch.einsum(
-            "bqc,kc->bqk", l2_normalize(trunk["mask_embed"]),
-            l2_normalize(word_embed)).float()
-        open_logits = ensemble_logits_with_labels(open_logits, labels, "max")
-        if self.clip_head is not None and clip_text_embed is not None:
-            open_logits = self.clip_head.ensemble(
-                trunk["clip_mask_embed"], open_logits, clip_text_embed,
-                clip_labels, category_overlap)
-        bg_prob = torch.softmax(trunk["pred_logits"].float(), dim=-1)[..., -1:]
-        class_probs = torch.softmax(open_logits.float(), dim=-1)
-        return torch.log(torch.cat([class_probs * (1.0 - bg_prob), bg_prob],
-                                   dim=-1) + 1e-8)
+        with span("odise.vocab_head"):
+            word_embed = self.word_head(text_embed_raw[None])["word_embed"][0]
+            open_logits = trunk["logit_scale"] * torch.einsum(
+                "bqc,kc->bqk", l2_normalize(trunk["mask_embed"]),
+                l2_normalize(word_embed)).float()
+            open_logits = ensemble_logits_with_labels(open_logits, labels, "max")
+            if self.clip_head is not None and clip_text_embed is not None:
+                open_logits = self.clip_head.ensemble(
+                    trunk["clip_mask_embed"], open_logits, clip_text_embed,
+                    clip_labels, category_overlap)
+            bg_prob = torch.softmax(trunk["pred_logits"].float(), dim=-1)[..., -1:]
+            class_probs = torch.softmax(open_logits.float(), dim=-1)
+            return torch.log(torch.cat([class_probs * (1.0 - bg_prob), bg_prob],
+                                       dim=-1) + 1e-8)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..data.build import prompt_labels
+from ..utils.tracing import span
 from .clip.tokenizer import tokenize
 from .odise import category_overlapping_mask
 
@@ -87,12 +88,13 @@ class OpenPanopticInference:
 
     @torch.no_grad()
     def __call__(self, images):
-        images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        trunk = self.model.forward_eval_trunk(images)
-        v = self.vocabulary
-        # the upsampled mask_pred is not a head input
-        head_in = {k: t for k, t in trunk.items() if k != "mask_pred"}
-        mask_cls = self.model.forward_eval_head(
-            head_in, v.text_embed_raw, v.labels, v.clip_text_embed,
-            v.clip_labels, v.category_overlap)
-        return mask_cls, trunk["mask_pred"]
+        with span("odise.infer"):
+            images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+            trunk = self.model.forward_eval_trunk(images)
+            v = self.vocabulary
+            # the upsampled mask_pred is not a head input
+            head_in = {k: t for k, t in trunk.items() if k != "mask_pred"}
+            mask_cls = self.model.forward_eval_head(
+                head_in, v.text_embed_raw, v.labels, v.clip_text_embed,
+                v.clip_labels, v.category_overlap)
+            return mask_cls, trunk["mask_pred"]

@@ -17,6 +17,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import span
 from . import _build
 
 __all__ = ["MSDeformAttnFunction", "backward_counts", "backward_plan", "backward_smem_bytes",
@@ -527,9 +528,10 @@ class MSDeformAttnFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        value, sampling_locations, attention_weights = ctx.saved_tensors
-        grads = launch_backward(value, ctx.spatial_shapes, sampling_locations,
-                                attention_weights, grad_out.contiguous())
+        with span("odise.ms_deform_attn.bwd"):
+            value, sampling_locations, attention_weights = ctx.saved_tensors
+            grads = launch_backward(value, ctx.spatial_shapes, sampling_locations,
+                                    attention_weights, grad_out.contiguous())
         return (*grads, None)
 
 
@@ -556,17 +558,18 @@ def ms_deform_attn(value: torch.Tensor,
     autograd differentiates.
     """
     _check(value, spatial_shapes, sampling_locations, attention_weights)
-    if value.device.type == "cuda":
-        shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (value, sampling_locations, attention_weights)):
-            return MSDeformAttnFunction.apply(value, sampling_locations,
-                                              attention_weights, shapes)
-        return launch(value, shapes, sampling_locations, attention_weights)
-    if value.device.type != "cpu":
-        raise ValueError(f"unsupported device {value.device}")
-    return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
-                                attention_weights)
+    with span("odise.ms_deform_attn"):
+        if value.device.type == "cuda":
+            shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (value, sampling_locations, attention_weights)):
+                return MSDeformAttnFunction.apply(value, sampling_locations,
+                                                  attention_weights, shapes)
+            return launch(value, shapes, sampling_locations, attention_weights)
+        if value.device.type != "cpu":
+            raise ValueError(f"unsupported device {value.device}")
+        return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
+                                    attention_weights)
 
 
 ms_deform_attn.launches = 0

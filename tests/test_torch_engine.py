@@ -16,8 +16,7 @@ import pytest
 import torch
 
 from odise_torch.engine.checkpoint import BestCheckpointer, Checkpointer, split_frozen
-from odise_torch.engine.hooks import (EvalHook, IterationTimer, PeriodicCheckpointer,
-                                      PeriodicWriter)
+from odise_torch.engine.hooks import EvalHook, PeriodicCheckpointer, PeriodicWriter
 from odise_torch.engine.optimizer import make_optimizer, multistep_lr
 from odise_torch.engine.train_loop import Trainer, partition_params
 from odise_torch.utils.events import (CommonMetricPrinter, EventStorage, JSONWriter,
@@ -52,7 +51,6 @@ def test_eval_hook_period_and_final_dedup():
 
 def test_iteration_timer_and_writer():
     storage = EventStorage()
-    timer = IterationTimer()
     writer_calls = []
 
     class W:
@@ -61,12 +59,12 @@ def test_iteration_timer_and_writer():
 
     pw = PeriodicWriter([W()], storage, period=2)
     for it in range(4):
-        metrics = {"loss": float(it)}
-        timer(it, metrics)
+        # the keys Trainer puts into each step's metrics
+        metrics = {"loss": float(it), "data_time": 0.001, "time": 0.01 * (it + 1)}
         pw(it, metrics)
     assert len(writer_calls) == 2
     assert storage.iter == 4
-    assert "time" in storage.latest()
+    assert storage.latest()["time"] == (3, 0.04)
 
 
 def test_multistep_lr_values():
